@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (mrla_tpu_torch) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py          # from the root of the repository
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+  1. device: the card's name, the device count and nvidia-smi's name and
+     power limit;
+  2. build: nvcc compiles the kernels from mrla_tpu_torch/csrc (one process
+     per source, in parallel); ptxas' registers / shared memory / spills of
+     each kernel are printed;
+  3. kernels: each kernel's wrapper against its plain PyTorch version on the
+     card, in bf16, at every shape the resnet50_mrlal main path (224 px,
+     batch 128) gives it, with its time (CUDA events), its bound and the
+     plain version's time;
+  4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
+     BN-folded engine for 4 requests, from seeded random weights with a
+     non-zero bn3 scale and BN statistics set from seeded images
+     (mrla_tpu_torch/testing.py).  The launches counted by shape must be
+     exactly the table below (7 mega-tail + 9 epilogue per forward), the
+     logits finite, and, against the port's own fp32 forward on the CPU
+     for 32 images, the top-1 class the same for the 8 whose fp32 decision
+     is clearest and the logit error (see logit_error) within
+     LOGIT_ERROR_TOL; the engine with one wiring fault in any one block
+     must fail that check;
+  5. throughput: img/s over 20 forwards and the peak device memory;
+  6. one JSON line listing each ported kernel, its per-forward numbers
+     weighted by the launches counted by shape on the main path;
+  7. the nvidia-smi line, then the result line
+     {"ok": true, "device": {"platform": "gpu", ...}}.
+
+It needs one CUDA card and exits non-zero without printing a result when
+there is none, or when the mrla_tpu_torch package is not beside it.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+BATCH, PX, REQUESTS, TIMED_FORWARDS = 128, 224, 4, 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+TAIL_FP32_OPS = 24  # per element: 9 taps (FMA = 2), gate, λ·id, BN, residual
+# logit_error of the served bf16 logits against the fp32 CPU forward: a
+# sound run on an H100 reads 0.0179, and one wiring fault in one block
+# 0.115 at the least (both printed by this script; readings in PERF.md)
+LOGIT_ERROR_TOL = 0.05
+
+# The shapes the resnet50_mrlal main path (224 px, batch 128) gives each
+# kernel, keyed as the wrapper's counter keys its launches, with a label
+# and the launches per forward: (B, H, W, C) for the epilogue and
+# (B, H, W, C, C1) for the mega-tail.  serve() asserts that the main path
+# launched exactly these.
+EPILOGUE_SHAPES = {
+    (BATCH, 14, 14, 1024): ("stage3", 6),
+    (BATCH, 7, 7, 2048): ("stage4", 3),
+}
+MEGATAIL_SHAPES = {
+    (BATCH, 56, 56, 256, 64): ("layer1_0..1", 2),
+    (BATCH, 56, 56, 256, 128): ("layer1_2", 1),
+    (BATCH, 28, 28, 512, 128): ("layer2_0..2", 3),
+    (BATCH, 28, 28, 512, 256): ("layer2_3", 1),
+}
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` in ms: CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, mm_flops: float, ew_flops: float):
+    """The least time (ms) the card could take and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(mm_flops / BF16_TENSOR_FLOPS, ew_flops / FP32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tail_inputs(gen, hw, c):
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return dict(
+        out=rnd(BATCH, hw, hw, c).mul_(0.5).relu_().bfloat16(),
+        identity=rnd(BATCH, hw, hw, c).bfloat16(),
+        gate=torch.sigmoid(rnd(BATCH, c)),
+        wv=rnd(9, c).mul_(0.3),
+        lam=rnd(c),
+        bn_scale=rnd(c).mul_(0.2).add_(1.0),
+        bn_bias=rnd(c).mul_(0.2),
+    )
+
+
+def ulp_tol(ref: torch.Tensor, ulps: int) -> float:
+    """``ulps`` bf16 units in the last place at the largest |ref|."""
+    return ulps * 2.0 ** -7 * ref.abs().max().item()
+
+
+def check_kernels(lib):
+    from mrla_tpu_torch.kernels import (
+        fused_epilogue,
+        fused_epilogue_reference,
+        mrla_block_tail_fused_next,
+        mrla_block_tail_fused_next_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {"epilogue": {}, "megatail": {}}
+    for shape, (stage, _) in EPILOGUE_SHAPES.items():
+        _, hw, _, c = shape
+        a = tail_inputs(gen, hw, c)
+        y = fused_epilogue(**a)
+        y_ref = fused_epilogue_reference(**a)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        tol = ulp_tol(y_ref.float(), 1)
+        ptrs = [a[k].data_ptr() for k in ("out", "identity", "gate", "wv",
+                                          "lam", "bn_scale", "bn_bias")]
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = cuda_ms(lambda: lib.mrla_epilogue_bf16(
+            *ptrs, y.data_ptr(), BATCH, hw, hw, c, stream))
+        plain_ms = cuda_ms(lambda: fused_epilogue_reference(**a), iters=5)
+        n = BATCH * hw * hw * c
+        bound_ms, by = bound(3 * n * 2 + BATCH * c * 4 + 12 * c * 4, 0,
+                             TAIL_FP32_OPS * n)
+        rows["epilogue"][shape] = dict(
+            shape=f"{stage} [{BATCH},{hw},{hw},{c}]", max_abs_err=err,
+            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"epilogue {stage} [{BATCH},{hw},{hw},{c}] bf16: max|Δy| {err:.3g}"
+              f" (tol {tol:.3g}: 1 bf16 ulp at max|y|; both round one fp32"
+              f" value summed in another order) | kernel {ms:.4f} ms, bound"
+              f" {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+        if not err <= tol:
+            raise AssertionError(f"epilogue {stage}: {err} > {tol}")
+        del a, y, y_ref
+
+    for shape, (stage, _) in MEGATAIL_SHAPES.items():
+        _, hw, _, c, c1 = shape
+        a = tail_inputs(gen, hw, c)
+        w1 = (torch.randn(c1, c, generator=gen, device="cuda")
+              / c ** 0.5).bfloat16()
+        b1 = torch.randn(c1, generator=gen, device="cuda") * 0.2
+        y, x1 = mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+        y_ref, x1_ref = mrla_block_tail_fused_next_reference(
+            **a, w1_next=w1, b1_next=b1)
+        err_y = (y.float() - y_ref.float()).abs().max().item()
+        err_x1 = (x1.float() - x1_ref.float()).abs().max().item()
+        tol_y = ulp_tol(y_ref.float(), 1)
+        tol_x1 = ulp_tol(x1_ref.float(), 2)
+        ptrs = [a[k].data_ptr() for k in ("out", "identity", "gate", "wv",
+                                          "lam", "bn_scale", "bn_bias")]
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = cuda_ms(lambda: lib.mrla_megatail_bf16(
+            *ptrs, w1.data_ptr(), b1.data_ptr(), y.data_ptr(), x1.data_ptr(),
+            BATCH, hw, hw, c, c1, stream))
+        plain_ms = cuda_ms(lambda: mrla_block_tail_fused_next_reference(
+            **a, w1_next=w1, b1_next=b1), iters=5)
+        p = BATCH * hw * hw
+        n = p * c
+        nbytes = (3 * n * 2 + p * c1 * 2 + c * c1 * 2 + c1 * 4
+                  + BATCH * c * 4 + 12 * c * 4)
+        bound_ms, by = bound(nbytes, 2 * p * c * c1, TAIL_FP32_OPS * n)
+        rows["megatail"][shape] = dict(
+            shape=f"{stage} [{BATCH},{hw},{hw},{c}] C1={c1}",
+            max_abs_err=max(err_y, err_x1), tol=min(tol_y, tol_x1), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"megatail {stage} [{BATCH},{hw},{hw},{c}] C1={c1} bf16: "
+              f"max|Δy| {err_y:.3g} (tol {tol_y:.3g}: 1 bf16 ulp at max|y|), "
+              f"max|Δx1| {err_x1:.3g} (tol {tol_x1:.3g}: 2 bf16 ulps at "
+              f"max|x1|, its own rounding plus y's one-ulp flips) | kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms")
+        if not (err_y <= tol_y and err_x1 <= tol_x1):
+            raise AssertionError(f"megatail {stage}: y {err_y} > {tol_y} or "
+                                 f"x1 {err_x1} > {tol_x1}")
+        del a, y, x1, y_ref, x1_ref
+    torch.cuda.synchronize()
+    return rows
+
+
+def serve(smi: str):
+    from mrla_tpu_torch.kernels import fused_epilogue, mrla_block_tail_fused_next
+    from mrla_tpu_torch.serving import (
+        prepare_inference_params,
+        resnet_mrlal_forward,
+    )
+    from mrla_tpu_torch.testing import images, serving_model
+
+    model = serving_model(0)
+    params = prepare_inference_params(model, dtype=torch.bfloat16,
+                                      device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    host_batches = [images(gen, BATCH, PX) for _ in range(REQUESTS)]
+    batches = [xb.cuda() for xb in host_batches]
+    counters = {"megatail": mrla_block_tail_fused_next.counter,
+                "epilogue": fused_epilogue.counter}
+
+    # the main path: counts set to 0 just before, read just after
+    for c in counters.values():
+        c.reset()
+    logits = [resnet_mrlal_forward(params, xb) for xb in batches]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    per_forward = {k: {s: n / REQUESTS for s, n in c.by_shape.items()}
+                   for k, c in counters.items()}
+    want = {k: {s: n for s, (_, n) in table.items()} for k, table in
+            (("megatail", MEGATAIL_SHAPES), ("epilogue", EPILOGUE_SHAPES))}
+    print(f"serving resnet50_mrlal {PX}px bs{BATCH} bf16, {REQUESTS} requests:"
+          f" launches {launches}; per forward by shape {per_forward}")
+    if per_forward != want:
+        raise AssertionError(f"launches per forward {per_forward} != {want}")
+    for lg in logits:
+        if lg.shape != (BATCH, 1000) or not torch.isfinite(lg).all():
+            raise AssertionError("logits not finite or of the wrong shape")
+
+    check_logits(model, params, host_batches[0][:32], logits[0][:32].cpu())
+
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.zeros((), device="cuda")
+    for xb in batches[:2]:
+        total += resnet_mrlal_forward(params, xb).sum()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_FORWARDS):  # every output consumed
+        total += resnet_mrlal_forward(params, batches[i % REQUESTS]).sum()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(total):
+        raise AssertionError("non-finite logits in the timed run")
+    ips = TIMED_FORWARDS * BATCH / dt
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"throughput resnet50_mrlal {PX}px bs{BATCH} bf16: {ips:.1f} img/s "
+          f"({dt / TIMED_FORWARDS * 1e3:.2f} ms/forward over {TIMED_FORWARDS}"
+          f" forwards), peak memory {peak:.2f} GiB, on {smi}")
+    return launches, per_forward
+
+
+def logit_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| over the part of ``ref`` that differs from image to
+    image, ||ref - its mean over the images||.  With random weights most of
+    each logit is shared by every image, so an error measured against the
+    logits themselves would hide a fault that leaves that share in place."""
+    return ((got - ref).norm() / (ref - ref.mean(0)).norm()).item()
+
+
+def faulty_forward(params, x, kind: str, at: int) -> torch.Tensor:
+    """The serving engine with one wiring fault in block ``at`` (its tail
+    call): ``handoff`` passes on x1 = relu(conv1(out)) of the block's map
+    before the tail instead of conv1 of y; ``identity`` gives the tail the
+    block's own map as its identity."""
+    import mrla_tpu_torch.serving.resnet_mrlal as eng
+
+    tail, epi = eng.mrla_block_tail_fused_next, eng.mrla_light_epilogue
+    calls = itertools.count()
+
+    def faulty_tail(out, identity, *rest):
+        hit = next(calls) == at
+        y, x1 = tail(out, out if hit and kind == "identity" else identity,
+                     *rest)
+        if hit and kind == "handoff":
+            x1 = eng._conv(out, rest[-2], rest[-1]).relu_()
+        return y, x1
+
+    def faulty_epi(out, identity, *rest):
+        hit = next(calls) == at
+        return epi(out, out if hit and kind == "identity" else identity,
+                   *rest)
+
+    eng.mrla_block_tail_fused_next, eng.mrla_light_epilogue = (faulty_tail,
+                                                              faulty_epi)
+    try:
+        return eng.resnet_mrlal_forward(params, x).cpu()
+    finally:
+        eng.mrla_block_tail_fused_next, eng.mrla_light_epilogue = tail, epi
+
+
+def check_logits(model, params, images, got):
+    """The served bf16 logits of 32 images against the port's own fp32
+    forward on the CPU: top-1 on the 8 clearest images, and logit_error
+    within LOGIT_ERROR_TOL.  Then the same check on the engine with one
+    wiring fault in one block, for every block and both faults: each must
+    fail it, or the check could not see such a fault."""
+    with torch.no_grad():
+        ref = model(images)
+    # A random 1000-way head puts some images on a near tie, where the top-1
+    # class is decided by rounding; the 8 with the largest fp32 top-1
+    # margin are compared.
+    top2 = ref.topk(2, dim=-1).values
+    margins = top2[:, 0] - top2[:, 1]
+    pick = margins.argsort(descending=True)[:8]
+    err = logit_error(got, ref)
+    print(f"top-1 vs the port's fp32 CPU forward on the 8 clearest of 32 "
+          f"images: bf16 {got[pick].argmax(-1).tolist()} fp32 "
+          f"{ref[pick].argmax(-1).tolist()}; least margin of the 8 "
+          f"{margins[pick].min().item():.4g}; top-1 agrees on "
+          f"{(got.argmax(-1) == ref.argmax(-1)).sum().item()}/32; max|Δlogit|"
+          f" {(got - ref).abs().max().item():.4g}, max|logit| "
+          f"{ref.abs().max().item():.4g}; logit error {err:.4g} (tol "
+          f"{LOGIT_ERROR_TOL})")
+    if not torch.equal(got[pick].argmax(-1), ref[pick].argmax(-1)):
+        raise AssertionError("top-1 disagrees with the fp32 CPU forward")
+    if not err <= LOGIT_ERROR_TOL:
+        raise AssertionError(f"logit error {err} > {LOGIT_ERROR_TOL}")
+
+    x = images.cuda()
+    faults = [("handoff", i) for i in range(sum(n for _, n in
+                                                MEGATAIL_SHAPES.values()))]
+    faults += [("identity", i) for i in range(len(params["blocks"]))]
+    errs = {f"{kind}@{at}": logit_error(faulty_forward(params, x, kind, at),
+                                        ref) for kind, at in faults}
+    print("logit error with one wiring fault (kind@block): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in errs.items()))
+    missed = [k for k, v in errs.items() if not v > LOGIT_ERROR_TOL]
+    if missed:
+        raise AssertionError(f"the logit check misses the faults {missed}")
+
+
+def kernels_line(rows, launches, per_forward):
+    """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
+    shape's time weighted by its launches per forward on the main path."""
+    meta = {
+        "epilogue": ("mrla_light_epilogue", "mrla_tpu_torch/csrc/mrla_epilogue.cu",
+                     "mrla_tpu/kernels/mrla_epilogue.py:128"),
+        "megatail": ("mrla_block_tail_fused_next",
+                     "mrla_tpu_torch/csrc/mrla_megatail.cu",
+                     "mrla_tpu/kernels/mrla_megatail.py:289"),
+    }
+    out = []
+    for key, (name, source, replaces) in meta.items():
+        counts = per_forward[key]
+        shapes = [dict(rows[key][s], per_forward=n) for s, n in counts.items()]
+        weighted = lambda f: sum(r[f] * r["per_forward"] for r in shapes)
+        # what bounds the shape that holds most of the forward's bound
+        by = max(shapes, key=lambda r: r["bound_ms"] * r["per_forward"])
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[key],
+            "launches_per_forward": sum(counts.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": weighted("ms"),
+            "plain_ms": weighted("plain_ms"),
+            "bound_ms": weighted("bound_ms"),
+            "bound_by": by["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes it
+            "per_shape": shapes,
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from mrla_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi()
+    print(f"device: {name}, count {count}, nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"Python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    lib = _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.build()}")
+    for line in _build.ptxas_log().splitlines():
+        if any(s in line for s in ("==", "Compiling entry", "registers",
+                                   "spill")):
+            print("  " + line.strip())
+
+    rows = check_kernels(lib)
+    launches, per_forward = serve(smi)
+    print(json.dumps(kernels_line(rows, launches, per_forward)))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""mrla_tpu_torch: the PyTorch / CUDA (H100) port of mrla_tpu.
+
+The JAX package ``mrla_tpu`` stays the reference; this package imports
+nothing from it and nothing of JAX.  Public functions take and return NHWC
+tensors, as the JAX package's do.  Entry points run on ``device="cuda"``
+unless the caller passes ``device="cpu"``, and raise when no card is
+present.
+
+Ported so far: the resnet_mrlal serving path (ops, MRLA-light layers, the
+model, the BN-folded engine) with its two hand-written kernels, the MRLA
+block epilogue and the mega-tail (``kernels/``, sources in ``csrc/``).
+"""
+
+from mrla_tpu_torch import ckpt, kernels, models, nn, ops, serving
+from mrla_tpu_torch._device import resolve_device
+
+__all__ = ["ckpt", "kernels", "models", "nn", "ops", "resolve_device",
+           "serving"]

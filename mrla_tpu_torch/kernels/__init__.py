@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
+
+Importing this package builds nothing: the kernels are compiled by nvcc at
+their first launch (``kernels/_build.py``)."""
+
+from mrla_tpu_torch.kernels.mrla_epilogue import (
+    fused_epilogue,
+    fused_epilogue_reference,
+    mrla_light_epilogue,
+    mrla_light_epilogue_reference,
+    mrla_light_gate,
+)
+from mrla_tpu_torch.kernels.mrla_megatail import (
+    mrla_block_tail_fused_next,
+    mrla_block_tail_fused_next_reference,
+)
+
+__all__ = [
+    "fused_epilogue",
+    "fused_epilogue_reference",
+    "mrla_block_tail_fused_next",
+    "mrla_block_tail_fused_next_reference",
+    "mrla_light_epilogue",
+    "mrla_light_epilogue_reference",
+    "mrla_light_gate",
+]

@@ -1,0 +1,19 @@
+from mrla_tpu_torch.models.registry import create_model, list_models, register_model
+from mrla_tpu_torch.models.resnet_mrla_light import (
+    MRLABottleneck,
+    ResNetMRLALight,
+    resnet50_mrlal,
+    resnet101_mrlal,
+    resnet152_mrlal,
+)
+
+__all__ = [
+    "MRLABottleneck",
+    "ResNetMRLALight",
+    "create_model",
+    "list_models",
+    "register_model",
+    "resnet50_mrlal",
+    "resnet101_mrlal",
+    "resnet152_mrlal",
+]

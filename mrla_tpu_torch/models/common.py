@@ -1,0 +1,81 @@
+"""Shared conv-net building blocks (PyTorch, NCHW modules on channels_last
+memory).
+
+Init parity with the JAX package: convs are kaiming normal fan_out; BN
+scale 1, bias 0, eps 1e-5; the last BN of every residual branch (bn3) is
+zero-initialised when asked; Linear is U(±1/√fan_in) for weight and bias.
+
+Module names follow the reference implementation's ``state_dict`` keys, so
+the stem is two modules the model owns as ``conv1`` and ``bn1``, the
+shortcut an ``nn.Sequential`` (``downsample.0`` conv, ``downsample.1`` BN)
+and the classifier a top-level ``fc``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def _kaiming_fan_out(conv: nn.Conv2d,
+                     generator: Optional[torch.Generator]) -> nn.Conv2d:
+    out_ch, _, kh, kw = conv.weight.shape
+    with torch.no_grad():
+        conv.weight.normal_(0.0, math.sqrt(2.0 / (out_ch * kh * kw)),
+                            generator=generator)
+    return conv
+
+
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1,
+            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    return _kaiming_fan_out(
+        nn.Conv2d(in_ch, out_ch, 3, stride, padding=1, bias=False), generator
+    )
+
+
+def conv1x1(in_ch: int, out_ch: int, stride: int = 1,
+            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    return _kaiming_fan_out(
+        nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), generator
+    )
+
+
+def batch_norm(channels: int, zero_init: bool = False) -> nn.BatchNorm2d:
+    """BatchNorm with torch defaults (eps 1e-5, running-stat momentum 0.1)."""
+    bn = nn.BatchNorm2d(channels, eps=BN_EPS)
+    if zero_init:
+        nn.init.zeros_(bn.weight)
+    return bn
+
+
+def stem7x7(width: int = 64, generator: Optional[torch.Generator] = None
+            ) -> tuple[nn.Conv2d, nn.BatchNorm2d]:
+    """The classic ResNet stem's 7x7/2 conv and its BN (ReLU and max pool
+    are applied by the model)."""
+    conv = _kaiming_fan_out(
+        nn.Conv2d(3, width, 7, 2, padding=3, bias=False), generator
+    )
+    return conv, batch_norm(width)
+
+
+def downsample(in_ch: int, out_ch: int, stride: int,
+               generator: Optional[torch.Generator] = None) -> nn.Sequential:
+    """1x1-conv + BN shortcut projection."""
+    return nn.Sequential(conv1x1(in_ch, out_ch, stride, generator),
+                         batch_norm(out_ch))
+
+
+def classifier_fc(in_features: int, num_classes: int,
+                  generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """The classification head's Linear (applied after a fp32 GAP)."""
+    fc = nn.Linear(in_features, num_classes)
+    lim = 1.0 / math.sqrt(in_features)
+    with torch.no_grad():
+        fc.weight.uniform_(-lim, lim, generator=generator)
+        fc.bias.uniform_(-lim, lim, generator=generator)
+    return fc

@@ -1,0 +1,82 @@
+"""MRLA-light layers as ``nn.Module``s.
+
+Parameter names are the reference implementation's, so its published
+``state_dict``s load unchanged: ``mrla.Wq.weight`` [1, 1, k],
+``mrla.Wk.weight``, ``mrla.Wv.weight`` [C, 1, 3, 3] and ``lambda_t``
+[C, 1, 1].
+
+Init matches the JAX package: Conv1d-uniform Wq/Wk (U(±1/√k)), kaiming
+normal fan_out Wv, λ ~ N(0, 1).
+
+The modules take NCHW tensors, as ``nn.Conv2d`` does; the model feeds them
+NCHW views of NHWC memory (channels_last strides), and the functional ops
+run on the NHWC view of the same memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mrla_tpu_torch.ops.common import eca_kernel_size
+from mrla_tpu_torch.ops.mrla import MRLAParams, mrla_light_attention
+
+
+def _resolve_heads(channels: int, heads: Optional[int],
+                  dim_perhead: Optional[int]) -> int:
+    if heads is None and dim_perhead is None:
+        raise ValueError("one of heads / dim_perhead must be given")
+    if dim_perhead is not None:
+        heads = channels // dim_perhead
+    if channels % heads != 0:
+        raise ValueError(
+            f"channels ({channels}) must be divisible by heads ({heads})"
+        )
+    return heads
+
+
+class MRLALightLayer(nn.Module):
+    """mrla_light_layer: sigmoid-gated single-position layer attention."""
+
+    def __init__(self, channels: int, heads: Optional[int] = None,
+                 dim_perhead: Optional[int] = None,
+                 k_size: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.heads = _resolve_heads(channels, heads, dim_perhead)
+        k = k_size or eca_kernel_size(channels)
+        self.Wq = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+        self.Wk = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+        self.Wv = nn.Conv2d(channels, channels, 3, padding=1,
+                            groups=channels, bias=False)
+        lim = 1.0 / math.sqrt(k)
+        with torch.no_grad():
+            self.Wq.weight.uniform_(-lim, lim, generator=generator)
+            self.Wk.weight.uniform_(-lim, lim, generator=generator)
+            # kaiming normal, fan_out = C·3·3 of the [C, 1, 3, 3] weight
+            self.Wv.weight.normal_(0.0, math.sqrt(2.0 / (channels * 9)),
+                                   generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = MRLAParams(self.Wq.weight, self.Wk.weight, self.Wv.weight)
+        y = mrla_light_attention(x.permute(0, 2, 3, 1), params, self.heads)
+        return y.permute(0, 3, 1, 2)
+
+
+class MRLALightModule(nn.Module):
+    """mrla_module (light): o_t = attn(x_t) + λ ⊙ o_{t-1}."""
+
+    def __init__(self, channels: int, dim_perhead: int = 32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mrla = MRLALightLayer(channels, dim_perhead=dim_perhead,
+                                   generator=generator)
+        self.lambda_t = nn.Parameter(torch.empty(channels, 1, 1))
+        with torch.no_grad():
+            self.lambda_t.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, xt: torch.Tensor, ot_1: torch.Tensor) -> torch.Tensor:
+        return self.mrla(xt) + self.lambda_t.to(ot_1.dtype) * ot_1

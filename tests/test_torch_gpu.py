@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``gpu``; each test skips (inside the ``cuda`` fixture) when no CUDA
+device is present.  This file imports no JAX, so on a machine without it
+run it without the JAX-forcing conftest:
+
+    python -m pytest --noconftest -m gpu -q tests/test_torch_gpu.py
+
+Tolerances: the kernel and its plain version round the same fp32 value,
+summed in another order, to bf16 once, so y agrees to one bf16 ulp at the
+largest |y|; x1 to two (its own rounding plus y's rare one-ulp flips).
+"""
+
+import pytest
+import torch
+
+from mrla_tpu_torch.kernels import (
+    fused_epilogue,
+    fused_epilogue_reference,
+    mrla_block_tail_fused_next,
+    mrla_block_tail_fused_next_reference,
+    mrla_light_gate,
+)
+from mrla_tpu_torch.serving import (
+    prepare_inference_params,
+    resnet_mrlal_forward,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _tail(gen, b, h, w, c):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    return dict(
+        out=rnd(b, h, w, c).relu_().bfloat16(),
+        identity=rnd(b, h, w, c).bfloat16(),
+        gate=torch.sigmoid(rnd(b, c)),
+        wv=rnd(9, c) * 0.3,
+        lam=rnd(c),
+        bn_scale=rnd(c) * 0.2 + 1.0,
+        bn_bias=rnd(c) * 0.2,
+    )
+
+
+def _assert_ulps(got, want, ulps):
+    want = want.float()
+    tol = ulps * 2.0 ** -7 * want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+# ragged maps (pixels not a multiple of the 64-pixel tile, W=7, B=1) and
+# the main-path shapes at a small batch
+@pytest.mark.parametrize("b,h,w,c", [(1, 5, 7, 64), (3, 7, 7, 2048),
+                                     (2, 14, 14, 1024), (2, 9, 11, 256)])
+def test_epilogue_kernel_matches_plain(cuda, b, h, w, c):
+    a = _tail(cuda, b, h, w, c)
+    fused_epilogue.counter.reset()
+    y = fused_epilogue(**a)
+    assert fused_epilogue.counter.launches == 1
+    _assert_ulps(y, fused_epilogue_reference(**a), 1)
+
+
+@pytest.mark.parametrize("b,h,w,c,c1", [(1, 5, 7, 64, 64),
+                                        (2, 56, 56, 256, 64),
+                                        (2, 56, 56, 256, 128),
+                                        (3, 28, 28, 512, 128),
+                                        (2, 28, 28, 512, 256),
+                                        (2, 9, 11, 256, 256)])
+def test_megatail_kernel_matches_plain(cuda, b, h, w, c, c1):
+    a = _tail(cuda, b, h, w, c)
+    w1 = (torch.randn(c1, c, 1, 1, generator=cuda, device="cuda")
+          / c ** 0.5).bfloat16()
+    b1 = torch.randn(c1, generator=cuda, device="cuda") * 0.2
+    mrla_block_tail_fused_next.counter.reset()
+    y, x1 = mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+    assert mrla_block_tail_fused_next.counter.launches == 1
+    y_ref, x1_ref = mrla_block_tail_fused_next_reference(
+        **a, w1_next=w1, b1_next=b1)
+    _assert_ulps(y, y_ref, 1)
+    _assert_ulps(x1, x1_ref, 2)
+
+
+def test_cuda_wrappers_reject_fp32_activations(cuda):
+    a = _tail(cuda, 1, 4, 4, 64)
+    a["out"] = a["out"].float()
+    a["identity"] = a["identity"].float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_epilogue(**a)
+
+
+# the C entry points refuse these with cudaErrorInvalidValue (1)
+@pytest.mark.parametrize("c,c1", [(96, 64), (256, 32), (256, 192)])
+def test_megatail_entry_point_rejects_unsupported_widths(cuda, c, c1):
+    a = _tail(cuda, 1, 4, 4, c)
+    w1 = torch.zeros(c1, c, device="cuda", dtype=torch.bfloat16)
+    b1 = torch.zeros(c1, device="cuda")
+    mrla_block_tail_fused_next.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+    assert mrla_block_tail_fused_next.counter.launches == 0
+    torch.cuda.synchronize()  # no error was left pending on the card
+
+
+def test_epilogue_entry_point_rejects_c_not_multiple_of_8(cuda):
+    a = _tail(cuda, 1, 4, 4, 12)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        fused_epilogue(**a)
+
+
+def test_serving_routes_through_the_kernels(cuda):
+    """112 px, layers (2, 2, 1, 1): 2 mega-tail and 4 epilogue launches, and
+    the bf16 engine on the card agrees with the fp32 engine on the CPU."""
+    from mrla_tpu_torch.models.resnet_mrla_light import ResNetMRLALight
+
+    layers = (2, 2, 1, 1)
+    model = ResNetMRLALight(list(layers), num_classes=10,
+                            generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.1, 0.5)
+    x = torch.randn(4, 112, 112, 3, generator=torch.Generator().manual_seed(1))
+    want = resnet_mrlal_forward(
+        prepare_inference_params(model, layers, torch.float32, "cpu"), x,
+        layers)
+    params = prepare_inference_params(model, layers, torch.bfloat16, "cuda")
+    fused_epilogue.counter.reset()
+    mrla_block_tail_fused_next.counter.reset()
+    got = resnet_mrlal_forward(params, x.cuda(), layers).cpu()
+    # layer1_0 -> layer1_1 (C1=64), layer1_1 -> layer2_0 across the stage
+    # boundary (C1=128); layer2_0 .. layer4_0 through the epilogue
+    assert mrla_block_tail_fused_next.counter.by_shape == {
+        (4, 28, 28, 256, 64): 1, (4, 28, 28, 256, 128): 1}
+    assert fused_epilogue.counter.by_shape == {
+        (4, 14, 14, 512): 2, (4, 7, 7, 1024): 1, (4, 4, 4, 2048): 1}
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_gate_runs_on_the_card(cuda):
+    a = _tail(cuda, 2, 7, 7, 256)
+    wq = torch.randn(5, generator=cuda, device="cuda")
+    g = mrla_light_gate(a["out"], wq, wq, 8)
+    assert g.shape == (2, 256) and g.device.type == "cuda"
+    want = mrla_light_gate(a["out"].cpu(), wq.cpu(), wq.cpu(), 8)
+    torch.testing.assert_close(g.cpu(), want, rtol=1e-5, atol=1e-6)
