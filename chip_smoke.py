@@ -11,22 +11,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      per source, in parallel); ptxas' registers / shared memory / spills of
      each kernel are printed;
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
-     card, in bf16, at every shape the resnet50_mrlal main path (224 px,
-     batch 128) gives it, with its time (CUDA events), its bound and the
+     card, in bf16, at every shape the resnet50_mrlal main paths (224 px,
+     batch 128) give it, with its time (CUDA events), its bound and the
      plain version's time;
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
-     (mrla_tpu_torch/testing.py).  The launches counted by shape must be
-     exactly the table below (7 mega-tail + 9 epilogue per forward), the
-     logits finite, and, against the port's own fp32 forward on the CPU
-     for 32 images, the top-1 class the same for the 8 whose fp32 decision
-     is clearest and the logit error (see logit_error) within
-     LOGIT_ERROR_TOL; the engine with one wiring fault in any one block
-     must fail that check;
-  5. throughput: img/s over 20 forwards and the peak device memory;
+     (mrla_tpu_torch/testing.py), on both routes: the per-block kernels
+     (use_stage4=False) and the stage kernel (attach_stage4,
+     use_stage4=True).  On each route the counts are set to 0 just before
+     the requests and read just after; the launches counted by shape must
+     be exactly the tables below (7 mega-tail + 9 epilogue per forward; 7
+     mega-tail + 6 epilogue + 1 stage kernel), the logits finite, and,
+     against the port's own fp32 forward on the CPU for 32 images, the
+     top-1 class the same for the 8 whose fp32 decision is clearest and
+     the logit error (see logit_error) within LOGIT_ERROR_TOL; the engine
+     with one wiring fault (in any one block; in the stage kernel's
+     packing or its strided input) must fail that check;
+  5. throughput: img/s over 20 forwards of each route, in turns, and the
+     peak device memory;
   6. one JSON line listing each ported kernel, its per-forward numbers
-     weighted by the launches counted by shape on the main path;
+     weighted by the launches counted by shape on its main path;
   7. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -62,6 +67,11 @@ LOGIT_ERROR_TOL = 0.05
 EPILOGUE_SHAPES = {
     (BATCH, 14, 14, 1024): ("stage3", 6),
     (BATCH, 7, 7, 2048): ("stage4", 3),
+}
+# With use_stage4=True the stage kernel, keyed (B, CIN, C1, C), takes the
+# place of stage 4's three epilogues.
+STAGE4_SHAPES = {
+    (BATCH, 1024, 512, 2048): ("layer4_0 conv3 .. layer4_2", 1),
 }
 MEGATAIL_SHAPES = {
     (BATCH, 56, 56, 256, 64): ("layer1_0..1", 2),
@@ -198,64 +208,141 @@ def check_kernels(lib):
             raise AssertionError(f"megatail {stage}: y {err_y} > {tol_y} or "
                                  f"x1 {err_x1} > {tol_x1}")
         del a, y, x1, y_ref, x1_ref
+    rows["stage4"] = check_stage4(gen)
     torch.cuda.synchronize()
     return rows
 
 
+def check_stage4(gen):
+    """The stage kernel against its plain version at the main path's shape,
+    from seeded weights scaled by fan-in (mrla_tpu_torch/testing.py)."""
+    from mrla_tpu_torch.kernels import (
+        stage4_resident,
+        stage4_resident_reference,
+    )
+    from mrla_tpu_torch.testing import stage4_case
+
+    rows = {}
+    for shape, (stage, _) in STAGE4_SHAPES.items():
+        b, cin, c1, c = shape
+        # xs is a strided view of the stage's input, read in place
+        ob, xs, packed = stage4_case(gen, b, cin, c1, c)
+        y = stage4_resident(ob, xs, packed)
+        y_ref = stage4_resident_reference(ob, xs, packed)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        tol = ulp_tol(y_ref.float(), 2)
+        ms = cuda_ms(lambda: stage4_resident(ob, xs, packed))
+        plain_ms = cuda_ms(lambda: stage4_resident_reference(ob, xs, packed),
+                           iters=3, warmup=1)
+        m = b * 49
+        weights = c1 * c + cin * c + 2 * (c * c1 + 9 * c1 * c1 + c1 * c)
+        vectors = (2 * c + 2 * 2 * c1 + 2 * c + 3 * 12 * c) * 4
+        nbytes = 2 * weights + 2 * m * (c1 + cin + c) + vectors
+        bound_ms, by = bound(nbytes, 2 * m * weights,
+                             3 * TAIL_FP32_OPS * m * c)
+        rows[shape] = dict(
+            shape=f"{stage} ob [{b},7,7,{c1}] xs [{b},7,7,{cin}] -> "
+                  f"[{b},7,7,{c}]", max_abs_err=err, tol=tol, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"stage4 {rows[shape]['shape']} bf16: max|Δy| {err:.3g} (tol "
+              f"{tol:.3g}: 2 bf16 ulps at max|y| = "
+              f"{y_ref.float().abs().max().item():.3g}; y's own rounding of "
+              f"fp32 sums taken in another order, plus the rare one-ulp "
+              f"flips of the bf16 y, x1 and o that travel on) | kernel "
+              f"{ms:.4f} ms ({2 * m * weights / ms / 1e9:.1f} TFLOP/s), "
+              f"bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+        if not err <= tol:
+            raise AssertionError(f"stage4: {err} > {tol}")
+    return rows
+
+
 def serve(smi: str):
-    from mrla_tpu_torch.kernels import fused_epilogue, mrla_block_tail_fused_next
+    from mrla_tpu_torch.kernels import (
+        fused_epilogue,
+        mrla_block_tail_fused_next,
+        stage4_resident,
+    )
     from mrla_tpu_torch.serving import (
+        attach_stage4,
         prepare_inference_params,
         resnet_mrlal_forward,
     )
     from mrla_tpu_torch.testing import images, serving_model
 
     model = serving_model(0)
-    params = prepare_inference_params(model, dtype=torch.bfloat16,
-                                      device="cuda")
+    params = attach_stage4(prepare_inference_params(
+        model, dtype=torch.bfloat16, device="cuda"))
     gen = torch.Generator().manual_seed(1)
     host_batches = [images(gen, BATCH, PX) for _ in range(REQUESTS)]
     batches = [xb.cuda() for xb in host_batches]
     counters = {"megatail": mrla_block_tail_fused_next.counter,
-                "epilogue": fused_epilogue.counter}
+                "epilogue": fused_epilogue.counter,
+                "stage4": stage4_resident.counter}
+    tables = {"megatail": MEGATAIL_SHAPES, "epilogue": EPILOGUE_SHAPES,
+              "stage4": STAGE4_SHAPES}
+    stage4_epilogues = {s: v for s, v in EPILOGUE_SHAPES.items()
+                        if v[0] == "stage4"}
+    with torch.no_grad():
+        ref = model(host_batches[0][:32])  # the port's fp32 CPU forward
 
-    # the main path: counts set to 0 just before, read just after
-    for c in counters.values():
-        c.reset()
-    logits = [resnet_mrlal_forward(params, xb) for xb in batches]
-    torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
-    per_forward = {k: {s: n / REQUESTS for s, n in c.by_shape.items()}
-                   for k, c in counters.items()}
-    want = {k: {s: n for s, (_, n) in table.items()} for k, table in
-            (("megatail", MEGATAIL_SHAPES), ("epilogue", EPILOGUE_SHAPES))}
-    print(f"serving resnet50_mrlal {PX}px bs{BATCH} bf16, {REQUESTS} requests:"
-          f" launches {launches}; per forward by shape {per_forward}")
-    if per_forward != want:
-        raise AssertionError(f"launches per forward {per_forward} != {want}")
-    for lg in logits:
-        if lg.shape != (BATCH, 1000) or not torch.isfinite(lg).all():
-            raise AssertionError("logits not finite or of the wrong shape")
+    launches, per_forward = {}, {}
+    for use_stage4 in (False, True):
+        route = f"use_stage4={use_stage4}"
+        want = {k: {s: n for s, (_, n) in table.items()}
+                for k, table in tables.items()}
+        if use_stage4:
+            for s in stage4_epilogues:
+                del want["epilogue"][s]
+        else:
+            want["stage4"] = {}
+        # a main path: counts set to 0 just before, read just after
+        for c in counters.values():
+            c.reset()
+        logits = [resnet_mrlal_forward(params, xb, use_stage4=use_stage4)
+                  for xb in batches]
+        torch.cuda.synchronize()
+        launches[use_stage4] = {k: c.launches for k, c in counters.items()}
+        per_forward[use_stage4] = {
+            k: {s: n / REQUESTS for s, n in c.by_shape.items()}
+            for k, c in counters.items()}
+        print(f"serving resnet50_mrlal {PX}px bs{BATCH} bf16 {route}, "
+              f"{REQUESTS} requests: launches {launches[use_stage4]}; per "
+              f"forward by shape {per_forward[use_stage4]}")
+        if per_forward[use_stage4] != want:
+            raise AssertionError(f"{route}: launches per forward "
+                                 f"{per_forward[use_stage4]} != {want}")
+        for lg in logits:
+            if lg.shape != (BATCH, 1000) or not torch.isfinite(lg).all():
+                raise AssertionError(f"{route}: logits not finite or of "
+                                     "the wrong shape")
+        check_logits(ref, logits[0][:32].cpu(), route)
+        check_faults(params, host_batches[0][:32].cuda(), ref, use_stage4)
 
-    check_logits(model, params, host_batches[0][:32], logits[0][:32].cpu())
+    def timed(use_stage4):
+        torch.cuda.reset_peak_memory_stats()
+        total = torch.zeros((), device="cuda")
+        for xb in batches[:2]:
+            total += resnet_mrlal_forward(params, xb,
+                                          use_stage4=use_stage4).sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_FORWARDS):  # every output consumed
+            total += resnet_mrlal_forward(params, batches[i % REQUESTS],
+                                          use_stage4=use_stage4).sum()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.isfinite(total):
+            raise AssertionError("non-finite logits in the timed run")
+        ips = TIMED_FORWARDS * BATCH / dt
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"throughput resnet50_mrlal {PX}px bs{BATCH} bf16 "
+              f"use_stage4={use_stage4}: {ips:.1f} img/s "
+              f"({dt / TIMED_FORWARDS * 1e3:.2f} ms/forward over "
+              f"{TIMED_FORWARDS} forwards), peak memory {peak:.2f} GiB, on "
+              f"{smi}")
 
-    torch.cuda.reset_peak_memory_stats()
-    total = torch.zeros((), device="cuda")
-    for xb in batches[:2]:
-        total += resnet_mrlal_forward(params, xb).sum()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(TIMED_FORWARDS):  # every output consumed
-        total += resnet_mrlal_forward(params, batches[i % REQUESTS]).sum()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if not torch.isfinite(total):
-        raise AssertionError("non-finite logits in the timed run")
-    ips = TIMED_FORWARDS * BATCH / dt
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"throughput resnet50_mrlal {PX}px bs{BATCH} bf16: {ips:.1f} img/s "
-          f"({dt / TIMED_FORWARDS * 1e3:.2f} ms/forward over {TIMED_FORWARDS}"
-          f" forwards), peak memory {peak:.2f} GiB, on {smi}")
+    for use_stage4 in (False, True, True, False):  # in turns, on one card
+        timed(use_stage4)
     return launches, per_forward
 
 
@@ -298,14 +385,36 @@ def faulty_forward(params, x, kind: str, at: int) -> torch.Tensor:
         eng.mrla_block_tail_fused_next, eng.mrla_light_epilogue = tail, epi
 
 
-def check_logits(model, params, images, got):
+def faulty_stage4_forward(params, x, kind: str) -> torch.Tensor:
+    """The use_stage4=True engine with one fault at the stage kernel:
+    ``swapped`` packs blocks 1 and 2 in each other's place; ``xs`` hands the
+    kernel the odd pixels x[:, 1::2, 1::2, :] of the stage's input."""
+    import mrla_tpu_torch.serving.resnet_mrlal as eng
+    from mrla_tpu_torch.kernels import pack_stage4_params
+
+    kernel, packed = eng.stage4_resident, params["stage4"]
+
+    def odd_pixels(ob, xs, p):
+        shift = (xs.stride(1) + xs.stride(2)) // 2  # one row and one column
+        return kernel(ob, xs.as_strided(xs.shape, xs.stride(),
+                                        xs.storage_offset() + shift), p)
+
+    if kind == "swapped":
+        b0, b1, b2 = params["blocks"][-3:]
+        params["stage4"] = pack_stage4_params([b0, b2, b1],
+                                              dtype=b0["k3"].dtype)
+    else:
+        eng.stage4_resident = odd_pixels
+    try:
+        return eng.resnet_mrlal_forward(params, x, use_stage4=True).cpu()
+    finally:
+        eng.stage4_resident, params["stage4"] = kernel, packed
+
+
+def check_logits(ref, got, route: str):
     """The served bf16 logits of 32 images against the port's own fp32
     forward on the CPU: top-1 on the 8 clearest images, and logit_error
-    within LOGIT_ERROR_TOL.  Then the same check on the engine with one
-    wiring fault in one block, for every block and both faults: each must
-    fail it, or the check could not see such a fault."""
-    with torch.no_grad():
-        ref = model(images)
+    within LOGIT_ERROR_TOL."""
     # A random 1000-way head puts some images on a near tie, where the top-1
     # class is decided by rounding; the 8 with the largest fp32 top-1
     # margin are compared.
@@ -313,8 +422,8 @@ def check_logits(model, params, images, got):
     margins = top2[:, 0] - top2[:, 1]
     pick = margins.argsort(descending=True)[:8]
     err = logit_error(got, ref)
-    print(f"top-1 vs the port's fp32 CPU forward on the 8 clearest of 32 "
-          f"images: bf16 {got[pick].argmax(-1).tolist()} fp32 "
+    print(f"{route}: top-1 vs the port's fp32 CPU forward on the 8 clearest "
+          f"of 32 images: bf16 {got[pick].argmax(-1).tolist()} fp32 "
           f"{ref[pick].argmax(-1).tolist()}; least margin of the 8 "
           f"{margins[pick].min().item():.4g}; top-1 agrees on "
           f"{(got.argmax(-1) == ref.argmax(-1)).sum().item()}/32; max|Δlogit|"
@@ -322,17 +431,30 @@ def check_logits(model, params, images, got):
           f"{ref.abs().max().item():.4g}; logit error {err:.4g} (tol "
           f"{LOGIT_ERROR_TOL})")
     if not torch.equal(got[pick].argmax(-1), ref[pick].argmax(-1)):
-        raise AssertionError("top-1 disagrees with the fp32 CPU forward")
+        raise AssertionError(f"{route}: top-1 disagrees with the fp32 CPU "
+                             "forward")
     if not err <= LOGIT_ERROR_TOL:
-        raise AssertionError(f"logit error {err} > {LOGIT_ERROR_TOL}")
+        raise AssertionError(f"{route}: logit error {err} > "
+                             f"{LOGIT_ERROR_TOL}")
 
-    x = images.cuda()
-    faults = [("handoff", i) for i in range(sum(n for _, n in
-                                                MEGATAIL_SHAPES.values()))]
-    faults += [("identity", i) for i in range(len(params["blocks"]))]
-    errs = {f"{kind}@{at}": logit_error(faulty_forward(params, x, kind, at),
-                                        ref) for kind, at in faults}
-    print("logit error with one wiring fault (kind@block): "
+
+def check_faults(params, x, ref, use_stage4: bool):
+    """The same logit check on the engine with one wiring fault: on the
+    per-block route, every block and both faults; on the stage-kernel
+    route, the two faults at the stage kernel.  Each must fail the check,
+    or the check could not see such a fault."""
+    if use_stage4:
+        errs = {kind: logit_error(faulty_stage4_forward(params, x, kind), ref)
+                for kind in ("swapped", "xs")}
+        label = "use_stage4=True, one fault at the stage kernel"
+    else:
+        faults = [("handoff", i) for i in range(
+            sum(n for _, n in MEGATAIL_SHAPES.values()))]
+        faults += [("identity", i) for i in range(len(params["blocks"]))]
+        errs = {f"{kind}@{at}": logit_error(
+            faulty_forward(params, x, kind, at), ref) for kind, at in faults}
+        label = "use_stage4=False, one wiring fault (kind@block)"
+    print(f"logit error with {label}: "
           + ", ".join(f"{k} {v:.4g}" for k, v in errs.items()))
     missed = [k for k, v in errs.items() if not v > LOGIT_ERROR_TOL]
     if missed:
@@ -341,17 +463,21 @@ def check_logits(model, params, images, got):
 
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
-    shape's time weighted by its launches per forward on the main path."""
+    shape's time weighted by its launches per forward on the kernel's main
+    path (use_stage4=True for the stage kernel, False for the others, whose
+    launches on the other route are listed beside)."""
     meta = {
         "epilogue": ("mrla_light_epilogue", "mrla_tpu_torch/csrc/mrla_epilogue.cu",
-                     "mrla_tpu/kernels/mrla_epilogue.py:128"),
+                     "mrla_tpu/kernels/mrla_epilogue.py:128", False),
         "megatail": ("mrla_block_tail_fused_next",
                      "mrla_tpu_torch/csrc/mrla_megatail.cu",
-                     "mrla_tpu/kernels/mrla_megatail.py:289"),
+                     "mrla_tpu/kernels/mrla_megatail.py:289", False),
+        "stage4": ("stage4_resident", "mrla_tpu_torch/csrc/mrla_stage4.cu",
+                   "mrla_tpu/kernels/mrla_stage4.py:312", True),
     }
     out = []
-    for key, (name, source, replaces) in meta.items():
-        counts = per_forward[key]
+    for key, (name, source, replaces, route) in meta.items():
+        counts = per_forward[route][key]
         shapes = [dict(rows[key][s], per_forward=n) for s, n in counts.items()]
         weighted = lambda f: sum(r[f] * r["per_forward"] for r in shapes)
         # what bounds the shape that holds most of the forward's bound
@@ -361,8 +487,10 @@ def kernels_line(rows, launches, per_forward):
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[key],
+            "launches": launches[route][key],
             "launches_per_forward": sum(counts.values()),
+            "main_path": f"use_stage4={route}",
+            "launches_on_other_route": launches[not route][key],
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": weighted("ms"),
             "plain_ms": weighted("plain_ms"),

@@ -7,8 +7,9 @@ unless the caller passes ``device="cpu"``, and raise when no card is
 present.
 
 Ported so far: the resnet_mrlal serving path (ops, MRLA-light layers, the
-model, the BN-folded engine) with its two hand-written kernels, the MRLA
-block epilogue and the mega-tail (``kernels/``, sources in ``csrc/``).
+model, the BN-folded engine) with its three hand-written kernels, the MRLA
+block epilogue, the mega-tail and the stage kernel of the ``use_stage4``
+route (``kernels/``, sources in ``csrc/``).
 """
 
 from mrla_tpu_torch import ckpt, kernels, models, nn, ops, serving

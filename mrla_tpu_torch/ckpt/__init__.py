@@ -1,3 +1,6 @@
-from mrla_tpu_torch.ckpt.from_jax import state_dict_from_jax
+from mrla_tpu_torch.ckpt.from_jax import (
+    serving_params_from_jax,
+    state_dict_from_jax,
+)
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["serving_params_from_jax", "state_dict_from_jax"]

@@ -1,4 +1,5 @@
-"""JAX/Flax variables -> the port's ``state_dict`` (resnet mrlal family).
+"""JAX/Flax variables -> the port's ``state_dict``, and a JAX serving tree
+-> the port's serving params (resnet mrlal family).
 
 The exact inverse of the JAX package's ``convert_resnet_state_dict`` for
 the mrlal family, from plain numpy:
@@ -17,6 +18,16 @@ the mrlal family, from plain numpy:
 BN leaves map scale/bias/mean/var -> weight/bias/running_mean/running_var,
 and every BN gets ``num_batches_tracked`` = 0 so the result loads with
 ``load_state_dict(strict=True)``.
+
+``serving_params_from_jax`` converts the BN-folded tree that the JAX
+package's ``prepare_inference_params`` returns (or raw block dicts of the
+same layout) into what the port's ``prepare_inference_params`` returns:
+
+    stem/k [7,7,3,O] HWIO, stem/k_s2d [4,4,12,O] -> [O,3,7,7], [O,12,4,4]
+    blocks[i]/k1..k3, kd  HWIO                   -> [out, in, kh, kw]
+    blocks[i]/wv [3,3,1,C]                       -> [9, C]
+    blocks[i]/wq, wk, lam, bn_scale, bn_bias     -> flat fp32 vectors
+    fc/k [C, classes]                            -> [classes, C]
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from mrla_tpu_torch._device import resolve_device
 
 _BN_LEAVES = (
     ("params", "scale", "weight"),
@@ -83,3 +96,44 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd["fc.weight"] = _t(np.asarray(params["head"]["fc"]["kernel"]).T)
     sd["fc.bias"] = _t(params["head"]["fc"]["bias"])
     return sd
+
+
+def serving_params_from_jax(tree: Mapping, device="cuda",
+                            dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """A JAX serving tree (numpy or array leaves) -> the port's serving
+    params on ``device``: conv weights and biases and the fc weight in
+    ``dtype``, the MRLA vectors and the fc bias fp32.  ``stem``, ``fc`` and
+    ``k_s2d`` are optional."""
+    dev = resolve_device(device)
+
+    def conv(k):  # through fp32: numpy has no native bfloat16
+        return _oihw(np.asarray(k, np.float32)).to(dev, dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def vec(a):
+        return _t(np.asarray(a, np.float32)).reshape(-1).to(dev)
+
+    out: Dict = {"blocks": []}
+    if "stem" in tree:
+        stem = tree["stem"]
+        out["stem"] = {"k": conv(stem["k"]),
+                       "b": vec(stem["b"]).to(dtype)}
+        if "k_s2d" in stem:
+            out["stem"]["k_s2d"] = conv(stem["k_s2d"])
+    for p in tree["blocks"]:
+        blk: Dict = {}
+        for name in ("1", "2", "3", "d"):
+            if f"k{name}" in p:
+                blk[f"k{name}"] = conv(p[f"k{name}"])
+                blk[f"b{name}"] = vec(p[f"b{name}"]).to(dtype)
+        for name in ("wq", "wk", "lam", "bn_scale", "bn_bias"):
+            blk[name] = vec(p[name])
+        wv = np.asarray(p["wv"], np.float32)  # [3, 3, 1, C]
+        blk["wv"] = _t(wv.reshape(9, wv.shape[-1])).to(dev)
+        out["blocks"].append(blk)
+    if "fc" in tree:
+        out["fc"] = {
+            "k": _t(np.asarray(tree["fc"]["k"], np.float32).T).to(dev, dtype),
+            "b": vec(tree["fc"]["b"]),
+        }
+    return out

@@ -1,5 +1,5 @@
-// The MRLA-light block tail for 8 channels of one pixel, shared by the
-// epilogue and mega-tail kernels:
+// The MRLA-light block tail, shared by the epilogue, mega-tail and stage-4
+// kernels; mrla_tail_y8 computes it for 8 channels of one bf16 pixel:
 //
 //     y = out + (dwconv3x3(out) * gate + lam * id) * scale + bias
 //
@@ -47,6 +47,15 @@ __device__ __forceinline__ void load_f8(const float* p, float f[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
+// The arithmetic every MRLA tail ends in, for one value: `acc` is the
+// depthwise 3x3 sum of `o`'s neighbourhood, `g` the channel's gate.  Shared
+// by the bf16 tails here and the fp32 tail of the stage-4 kernel.
+__device__ __forceinline__ float mrla_tail_combine(float o, float acc, float g,
+                                                   float lam, float id,
+                                                   float sc, float bi) {
+  return o + (acc * g + lam * id) * sc + bi;
+}
+
 // y for channels c0..c0+7 of pixel p = (b * H + h) * W + w, packed as bf16x8.
 __device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
                                               int c0) {
@@ -87,7 +96,7 @@ __device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
   float y[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    y[i] = o[i] + (acc[i] * g[i] + lam[i] * idv[i]) * sc[i] + bi[i];
+    y[i] = mrla_tail_combine(o[i], acc[i], g[i], lam[i], idv[i], sc[i], bi[i]);
   return make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]),
                     pack_bf16x2(y[4], y[5]), pack_bf16x2(y[6], y[7]));
 }

@@ -14,6 +14,11 @@ from mrla_tpu_torch.kernels.mrla_megatail import (
     mrla_block_tail_fused_next,
     mrla_block_tail_fused_next_reference,
 )
+from mrla_tpu_torch.kernels.mrla_stage4 import (
+    pack_stage4_params,
+    stage4_resident,
+    stage4_resident_reference,
+)
 
 __all__ = [
     "fused_epilogue",
@@ -23,4 +28,7 @@ __all__ = [
     "mrla_light_epilogue",
     "mrla_light_epilogue_reference",
     "mrla_light_gate",
+    "pack_stage4_params",
+    "stage4_resident",
+    "stage4_resident_reference",
 ]

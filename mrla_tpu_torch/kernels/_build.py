@@ -34,12 +34,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argtypes (pointers and the stream as void*, sizes as int)
+_L = ctypes.c_longlong
+# C entry point -> argtypes (pointers and the stream as void*, sizes as int,
+# strides as long long)
 SIGNATURES = {
     # out, id, gate, wv, lam, scale, bias, y, B, H, W, C, stream
     "mrla_epilogue_bf16": [_P] * 8 + [_I] * 4 + [_P],
     # out, id, gate, wv, lam, scale, bias, w1, b1, y, x1, B, H, W, C, C1, stream
     "mrla_megatail_bf16": [_P] * 11 + [_I] * 5 + [_P],
+    # ob, xs, xs strides (image, row, column), kd, k3_0, k1, k2, k3, bd, b3_0,
+    # b1, b2, b3, wq, wk, wv, lam, scale, bias, f32, yb, x1o, y, B, CIN, C1, C,
+    # heads, ktap, stream
+    "mrla_stage4_bf16": [_P] * 2 + [_L] * 3 + [_P] * 20 + [_I] * 6 + [_P],
 }
 
 

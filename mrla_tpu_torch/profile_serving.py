@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the device time of the port's resnet50_mrlal forward goes.
 
-    python3 -m mrla_tpu_torch.profile_serving
+    python3 -m mrla_tpu_torch.profile_serving [--use-stage4]
 
 Serves resnet50_mrlal (224 px, bf16, the BN-folded engine, seeded weights
 and images from ``mrla_tpu_torch/testing.py``) on one CUDA card, traces
 ``FORWARDS`` forwards of batch ``BATCH`` with torch.profiler after a
 warm-up, and prints the device time by kernel group and for the busiest
-kernels, the wall time of the window and the device's idle share.  Needs
-a CUDA card.
+kernels, the wall time of the window and the device's idle share.  With
+``--use-stage4`` the traced forwards take the stage-kernel route.  Either
+way it then reads the device time of the last stage alone on both routes
+(a trace of the engine's block loop on the stage-3 output map).  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -23,6 +27,8 @@ import torch
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("mrla mega-tail kernel", ("mrla_megatail_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
+    ("mrla stage-4 kernel: products", ("stage4_gemm_kernel",)),
+    ("mrla stage-4 kernel: tails", ("stage4_tail_kernel",)),
     ("convolution", ("conv", "xmma", "gemm", "cutlass", "cudnn", "implicit",
                      "sm90_", "nhwc", "winograd", "fprop")),
     ("reduction (GAP, head)", ("reduce",)),
@@ -40,51 +46,91 @@ def group_of(name: str) -> str:
 
 
 FORWARDS, BATCH = 3, 128
+STAGE_RUNS = 20
+
+
+def device_ms(prof) -> dict:
+    """Kernel name -> [device ms, launches] of a finished profile."""
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        per_kernel[evt.key][0] += evt.self_device_time_total / 1e3
+        per_kernel[evt.key][1] += evt.count
+    return per_kernel
+
+
+def stage4_alone(params, x, use_stage4: bool) -> tuple[float, float]:
+    """(device ms, kernel launches) per run of the last stage on one route:
+    the engine's block loop over the stage's three blocks, from the stage-3
+    output map of ``x``.  The device time is the sum over the kernels of a
+    trace, so the host's launch gaps (the stage alone does not keep the
+    card busy) do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrla_tpu_torch.serving.resnet_mrlal import _blocks_impl, _trunk_impl
+
+    c4 = _trunk_impl(params, x, (3, 4, 6, 3), 32)[2]
+    stage = {"blocks": params["blocks"][-3:], "stage4": params["stage4"]}
+    run = lambda: _blocks_impl(stage, c4, (0, 3), 32, use_stage4)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STAGE_RUNS):
+            run()
+        torch.cuda.synchronize()
+    per_kernel = device_ms(prof)
+    return (sum(t for t, _ in per_kernel.values()) / STAGE_RUNS,
+            sum(n for _, n in per_kernel.values()) / STAGE_RUNS)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--use-stage4", action="store_true",
+                        help="trace the stage-kernel route")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
     from mrla_tpu_torch.serving import (
+        attach_stage4,
         prepare_inference_params,
         resnet_mrlal_forward,
     )
     from mrla_tpu_torch.testing import images, serving_model
 
     model = serving_model(0)
-    params = prepare_inference_params(model, dtype=torch.bfloat16,
-                                      device="cuda")
+    params = attach_stage4(prepare_inference_params(
+        model, dtype=torch.bfloat16, device="cuda"))
+    forward = lambda xb: resnet_mrlal_forward(params, xb,
+                                              use_stage4=args.use_stage4)
     gen = torch.Generator().manual_seed(1)
     batches = [images(gen, BATCH).cuda()
                for _ in range(FORWARDS)]
     for xb in batches:  # warm-up: build, cuDNN autotune, allocator
-        resnet_mrlal_forward(params, xb)
+        forward(xb)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
         for xb in batches:
-            resnet_mrlal_forward(params, xb)
+            forward(xb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    per_kernel = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        per_kernel[evt.key][0] += evt.self_device_time_total / 1e3  # ms
-        per_kernel[evt.key][1] += evt.count
+    per_kernel = device_ms(prof)
     busy = sum(t for t, _ in per_kernel.values())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"window: {FORWARDS} forwards, bs{BATCH}, wall "
+    print(f"window: {FORWARDS} forwards, bs{BATCH}, "
+          f"use_stage4={args.use_stage4}, wall "
           f"{wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/forward), "
           f"device busy {busy:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
@@ -105,6 +151,15 @@ def main() -> int:
     for name, (t, n) in top:
         print(f"  {t / FORWARDS:9.4f} {n / FORWARDS:6.1f}  "
               f"{name[:110]}")
+    alone = {False: [], True: []}
+    with torch.inference_mode():
+        for route in (False, True, True, False):  # in turns
+            alone[route].append(stage4_alone(params, batches[0], route))
+    fmt = lambda rs: " / ".join(f"{t:.4f} ms in {n:.0f} launches"
+                                for t, n in rs)
+    print(f"stage 4 alone, bs{BATCH} (device time of {STAGE_RUNS} traced "
+          f"runs each, in turns): per-block kernels {fmt(alone[False])}; "
+          f"stage kernel {fmt(alone[True])}")
     return 0
 
 

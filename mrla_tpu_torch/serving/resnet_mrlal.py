@@ -14,7 +14,12 @@ serving:
     next block goes through the mega-tail (``kernels/mrla_megatail.py``),
     which also computes the next block's conv1; the next block then starts
     from that activation, across a stage boundary too.  Every other block
-    goes through the epilogue kernel (``kernels/mrla_epilogue.py``).
+    goes through the epilogue kernel (``kernels/mrla_epilogue.py``);
+  * with ``use_stage4=True`` and params from :func:`attach_stage4`, a final
+    stage of three blocks on a 7x7 map runs from ``layer4_0``'s conv2 to the
+    stage output in the stage kernel (``kernels/mrla_stage4.py``).  Any
+    other geometry takes the per-block kernels: routing by shape, which the
+    wrappers' counters show.
 
 Images and activations are NHWC; convolutions run on NCHW views of NHWC
 memory (channels_last), so no layout copies are made.  On CPU tensors the
@@ -36,6 +41,10 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
     mrla_light_gate,
 )
 from mrla_tpu_torch.kernels.mrla_megatail import mrla_block_tail_fused_next
+from mrla_tpu_torch.kernels.mrla_stage4 import (
+    pack_stage4_params,
+    stage4_resident,
+)
 from mrla_tpu_torch.ops.common import max_pool_same_torch
 
 BN_EPS = 1e-5
@@ -52,8 +61,15 @@ def prepare_inference_params(
     layers: Sequence[int] = (3, 4, 6, 3),
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
+    with_head: bool = True,
+    s2d: bool = False,
 ) -> Dict:
-    """Fold BNs and cast; returns the serving params on ``device``."""
+    """Fold BNs and cast; returns the serving params on ``device``.
+
+    ``with_head=False`` leaves the fc out (a features-only backbone).
+    ``s2d=True`` also packs the stem's 7x7 stride-2 kernel as an equivalent
+    4x4 stride-1 kernel on a space-to-depth input (2x2 pixel blocks moved
+    into 12 channels), which ``_stem`` takes for even-sized images."""
     dev = resolve_device(device)
     src = (model_or_state_dict.state_dict()
            if isinstance(model_or_state_dict, nn.Module)
@@ -85,6 +101,14 @@ def prepare_inference_params(
     out: Dict = {}
     k, b = conv("conv1.weight", "bn1")
     out["stem"] = {"k": k, "b": b}
+    if s2d:
+        # w4[o, (py, px, c), I, J] = w7[o, c, 2I + py, 2J + px], zero where
+        # 2I + py or 2J + px exceeds 6
+        w7 = F.pad(k.float(), (0, 1, 0, 1))  # [O, 3, 8, 8]
+        o = w7.shape[0]
+        w4 = w7.reshape(o, 3, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        out["stem"]["k_s2d"] = w4.reshape(o, 12, 4, 4).to(dtype).contiguous(
+            memory_format=torch.channels_last)
     out["blocks"] = []
     for stage_idx, blocks in enumerate(layers):
         for block_idx in range(blocks):
@@ -107,9 +131,29 @@ def prepare_inference_params(
             blk["bn_bias"] = vec(bb)
             out["blocks"].append(blk)
 
-    out["fc"] = {"k": sd["fc.weight"].to(dev, dtype),  # [classes, C]
-                 "b": vec(sd["fc.bias"])}
+    if with_head:
+        out["fc"] = {"k": sd["fc.weight"].to(dev, dtype),  # [classes, C]
+                     "b": vec(sd["fc.bias"])}
     return out
+
+
+def attach_stage4(serving_params: Dict,
+                  layers: Sequence[int] = (3, 4, 6, 3),
+                  dim_perhead: int = 32) -> Dict:
+    """Pack the final stage's params for the stage kernel
+    (``kernels/mrla_stage4.py``) and attach them under ``"stage4"``.
+
+    The route is opt-in (``use_stage4=True`` in
+    :func:`resnet_mrlal_forward`); only a final stage of three blocks
+    qualifies.  Returns the same dict for chaining."""
+    if layers[-1] != 3:
+        raise ValueError("stage4 kernel covers 3-block final stages only")
+    blocks = serving_params["blocks"][-3:]
+    if "kd" not in blocks[0]:
+        raise ValueError("final-stage entry block has no downsample")
+    serving_params["stage4"] = pack_stage4_params(
+        blocks, dtype=blocks[0]["k3"].dtype, dim_perhead=dim_perhead)
+    return serving_params
 
 
 def _conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
@@ -144,36 +188,98 @@ def _block(x, p, stride: int, heads: int, x1_pre=None, p_next=None):
     ), None
 
 
-@torch.inference_mode()
-def resnet_mrlal_forward(
-    serving_params: Dict,
-    x: torch.Tensor,
-    layers: Sequence[int] = (3, 4, 6, 3),
-    dim_perhead: int = 32,
-) -> torch.Tensor:
-    """[B, H, W, 3] images (any float dtype; cast to the param dtype) on the
-    params' device -> logits [B, classes] fp32."""
-    stem = serving_params["stem"]
-    if x.device != stem["k"].device:
-        raise ValueError(f"images are on {x.device}, params on "
-                         f"{stem['k'].device}")
-    strides = [2 if (s > 0 and b == 0) else 1
-               for s, n in enumerate(layers) for b in range(n)]
+def _stem(x: torch.Tensor, p: Dict) -> torch.Tensor:
+    b, h, w, c = x.shape
+    if "k_s2d" in p and h % 2 == 0 and w % 2 == 0:
+        # space-to-depth: pad 3 -> [H + 6, W + 6]; 2x2 blocks into channels
+        # -> [(H + 6) / 2, (W + 6) / 2, 12]; a 4x4 conv without padding then
+        # equals the 7x7 stride-2 conv
+        xp = F.pad(x, (0, 0, 3, 3, 3, 3))
+        hp, wp = h + 6, w + 6
+        xp = xp.reshape(b, hp // 2, 2, wp // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+        xp = xp.reshape(b, hp // 2, wp // 2, 4 * c)
+        y = F.conv2d(xp.permute(0, 3, 1, 2), p["k_s2d"], p["b"])
+        y = y.permute(0, 2, 3, 1).relu_()
+    else:
+        y = _conv(x, p["k"], p["b"], stride=2).relu_()
+    return max_pool_same_torch(y, 3, 2)
+
+
+def _blocks_impl(serving_params: Dict, y: torch.Tensor,
+                 layers: Sequence[int], dim_perhead: int,
+                 use_stage4: bool = False) -> list:
+    """All blocks on a post-stem map; the per-stage outputs [C2, ..]."""
+    strides, stage_last = [], []
+    for stage_idx, n in enumerate(layers):
+        strides += [2 if (stage_idx > 0 and b == 0) else 1 for b in range(n)]
+        stage_last.append(len(strides) - 1)
     blocks = serving_params["blocks"]
     if len(blocks) != len(strides):
         raise ValueError(
             f"serving params hold {len(blocks)} blocks but layers="
             f"{tuple(layers)} implies {len(strides)}"
         )
-    y = _conv(x.to(stem["k"].dtype), stem["k"], stem["b"], stride=2).relu_()
-    y = max_pool_same_torch(y, 3, 2)
+    # the final stage's map: every later stage halves the post-stem map
+    # (symmetric padding, so ceil(h / 2))
+    s4_h, s4_w = y.shape[1], y.shape[2]
+    for _ in layers[1:]:
+        s4_h, s4_w = -(-s4_h // 2), -(-s4_w // 2)
+    s4_start = len(strides) - layers[-1]
+    run_s4 = (use_stage4 and "stage4" in serving_params and layers[-1] == 3
+              and strides[s4_start] == 2 and (s4_h, s4_w) == (7, 7))
     x1_pre = None
+    outs = []
     for i, (p, stride) in enumerate(zip(blocks, strides)):
+        if run_s4 and i == s4_start:
+            # layer4_0's conv1 and stride-2 conv2 stay convolutions; the
+            # stage kernel runs everything after them
+            x1 = (x1_pre if x1_pre is not None
+                  else _conv(y, p["k1"], p["b1"]).relu_())
+            ob = _conv(x1, p["k2"], p["b2"], stride=stride).relu_()
+            outs.append(stage4_resident(ob.contiguous(), y[:, ::2, ::2, :],
+                                        serving_params["stage4"]))
+            break
         heads = p["lam"].shape[0] // dim_perhead
         p_next = blocks[i + 1] if i + 1 < len(blocks) else None
         # the conv1 hand-off stays valid across stage boundaries: conv1 is
         # stride 1 and consumes exactly this block's output y
         y, x1_pre = _block(y, p, stride, heads, x1_pre=x1_pre, p_next=p_next)
+        if i in stage_last:
+            outs.append(y)
+    return outs
+
+
+def _trunk_impl(serving_params: Dict, x: torch.Tensor,
+                layers: Sequence[int], dim_perhead: int,
+                use_stage4: bool = False) -> list:
+    """Stem and all blocks; the per-stage outputs [C2, C3, C4, C5]."""
+    stem = serving_params["stem"]
+    if x.device != stem["k"].device:
+        raise ValueError(f"images are on {x.device}, params on "
+                         f"{stem['k'].device}")
+    y = _stem(x.to(stem["k"].dtype), stem)
+    return _blocks_impl(serving_params, y, layers, dim_perhead, use_stage4)
+
+
+def _head_impl(serving_params: Dict, y: torch.Tensor) -> torch.Tensor:
     pooled = torch.mean(y, dim=(1, 2), dtype=torch.float32)
     fc = serving_params["fc"]
     return pooled @ fc["k"].float().t() + fc["b"]
+
+
+@torch.inference_mode()
+def resnet_mrlal_forward(
+    serving_params: Dict,
+    x: torch.Tensor,
+    layers: Sequence[int] = (3, 4, 6, 3),
+    dim_perhead: int = 32,
+    use_stage4: bool = False,
+) -> torch.Tensor:
+    """[B, H, W, 3] images (any float dtype; cast to the param dtype) on the
+    params' device -> logits [B, classes] fp32.
+
+    ``use_stage4=True`` sends the final stage through the stage kernel when
+    the params carry ``"stage4"`` (:func:`attach_stage4`) and the stage's map
+    is 7x7 (224 px images); otherwise the per-block kernels run."""
+    y = _trunk_impl(serving_params, x, layers, dim_perhead, use_stage4)[-1]
+    return _head_impl(serving_params, y)

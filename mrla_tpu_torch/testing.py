@@ -1,5 +1,6 @@
-"""Seeded stand-ins for a trained model and real images, for smoke runs and
-profiles of the serving path (``chip_smoke.py``, ``profile_serving.py``).
+"""Seeded stand-ins for a trained model and real images, for smoke runs,
+profiles and on-card tests of the serving path (``chip_smoke.py``,
+``profile_serving.py``, ``tests/test_torch_gpu.py``).
 
 Random weights alone make a poor serving check: with freshly initialised BN
 statistics and pure-noise images, every image gives almost the same logits.
@@ -14,7 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mrla_tpu_torch.kernels import pack_stage4_params
 from mrla_tpu_torch.models import create_model
+from mrla_tpu_torch.serving.resnet_mrlal import _conv
 
 
 def images(gen: torch.Generator, n: int, px: int = 224) -> torch.Tensor:
@@ -47,3 +50,45 @@ def serving_model(seed: int) -> torch.nn.Module:
     for _, bn in bns:
         bn.momentum = 0.1
     return model.eval()
+
+
+def stage4_case(gen: torch.Generator, b: int, cin: int = 1024,
+                c1: int = 512, c: int = 2048, ktap: int = 5,
+                dtype: torch.dtype = torch.bfloat16):
+    """Seeded operands (ob, xs, packed) of ``stage4_resident`` on ``gen``'s
+    device, made as the engine makes them: three final-stage serving
+    blocks (layouts of ``prepare_inference_params``) are packed, and a
+    stage input map x [b, 14, 14, cin] goes through block 0's conv1 and
+    stride-2 conv2 to ob, and as the strided view x[:, ::2, ::2, :] to xs.
+    Weights are scaled by their fan-in so that every activation of the
+    chain stays of order 1, as BN-folded trained weights keep them."""
+    dev = gen.device
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+
+    def conv(out_ch, in_ch, k, gain):
+        w = rnd(out_ch, in_ch, k, k) * (gain / (in_ch * k * k)) ** 0.5
+        return (w.to(dtype).contiguous(memory_format=torch.channels_last),
+                (rnd(out_ch) * 0.1).to(dtype))
+
+    blocks = []
+    for i in range(3):
+        p = {}
+        p["k1"], p["b1"] = conv(c1, c if i else cin, 1, 2.0)
+        p["k2"], p["b2"] = conv(c1, c1, 3, 2.0)
+        p["k3"], p["b3"] = conv(c, c1, 1, 0.5)
+        if i == 0:
+            p["kd"], p["bd"] = conv(c, cin, 1, 1.0)
+        p["wq"] = (torch.rand(ktap, generator=gen, device=dev) * 2 - 1) \
+            / ktap ** 0.5
+        p["wk"] = (torch.rand(ktap, generator=gen, device=dev) * 2 - 1) \
+            / ktap ** 0.5
+        p["wv"] = rnd(9, c) * 0.2
+        p["lam"] = rnd(c) * 0.5
+        p["bn_scale"] = rnd(c) * 0.1 + 1.0
+        p["bn_bias"] = rnd(c) * 0.1
+        blocks.append(p)
+    x = rnd(b, 14, 14, cin).relu_().to(dtype)
+    p0 = blocks[0]
+    x1 = _conv(x, p0["k1"], p0["b1"]).relu_()
+    ob = _conv(x1, p0["k2"], p0["b2"], stride=2).relu_().contiguous()
+    return ob, x[:, ::2, ::2, :], pack_stage4_params(blocks, dtype)

@@ -9,6 +9,8 @@ run it without the JAX-forcing conftest:
 Tolerances: the kernel and its plain version round the same fp32 value,
 summed in another order, to bf16 once, so y agrees to one bf16 ulp at the
 largest |y|; x1 to two (its own rounding plus y's rare one-ulp flips).
+The stage kernel's y to two as well: its own rounding, plus the rare
+one-ulp flips of the bf16 intermediates (y, x1, o) that travel on.
 """
 
 import pytest
@@ -20,11 +22,14 @@ from mrla_tpu_torch.kernels import (
     mrla_block_tail_fused_next,
     mrla_block_tail_fused_next_reference,
     mrla_light_gate,
+    stage4_resident,
+    stage4_resident_reference,
 )
 from mrla_tpu_torch.serving import (
     prepare_inference_params,
     resnet_mrlal_forward,
 )
+from mrla_tpu_torch.testing import stage4_case
 
 pytestmark = pytest.mark.gpu
 
@@ -115,6 +120,35 @@ def test_epilogue_entry_point_rejects_c_not_multiple_of_8(cuda):
     a = _tail(cuda, 1, 4, 4, 12)
     with pytest.raises(RuntimeError, match="cudaError 1"):
         fused_epilogue(**a)
+
+
+# the published widths at ragged row counts (49, 147 and 784 rows against
+# tiles of 64 and 128), and one narrow width the kernel takes
+@pytest.mark.parametrize("b,cin,c1,c,ktap", [(1, 1024, 512, 2048, 5),
+                                             (3, 1024, 512, 2048, 5),
+                                             (16, 1024, 512, 2048, 5),
+                                             (3, 256, 128, 512, 3)])
+def test_stage4_kernel_matches_plain(cuda, b, cin, c1, c, ktap):
+    ob, xs, packed = stage4_case(cuda, b, cin, c1, c, ktap)
+    assert not xs.is_contiguous() and xs.shape == (b, 7, 7, cin)
+    stage4_resident.counter.reset()
+    y = stage4_resident(ob, xs, packed)
+    torch.cuda.synchronize()
+    assert stage4_resident.counter.by_shape == {(b, cin, c1, c): 1}
+    assert y.shape == (b, 7, 7, c) and y.dtype == torch.bfloat16
+    _assert_ulps(y, stage4_resident_reference(ob, xs, packed), 2)
+
+
+# C1 = 64 is no multiple of the 128-column tile: cudaErrorInvalidValue (1)
+def test_stage4_entry_point_rejects_unsupported_widths(cuda):
+    ob, xs, packed = stage4_case(cuda, 2, 128, 64, 256, 3)
+    stage4_resident.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        stage4_resident(ob, xs, packed)
+    assert stage4_resident.counter.launches == 0
+    torch.cuda.synchronize()  # no error was left pending on the card
+    with pytest.raises(TypeError, match="bfloat16"):
+        stage4_resident(ob.float(), xs, packed)
 
 
 def test_serving_routes_through_the_kernels(cuda):
