@@ -9,7 +9,8 @@ present.
 Ported so far: the resnet_mrlal serving path (ops, MRLA-light layers, the
 model, the BN-folded engine) with its three hand-written kernels, the MRLA
 block epilogue, the mega-tail and the stage kernel of the ``use_stage4``
-route (``kernels/``, sources in ``csrc/``).
+route; and the DeiT / DeiT-MRLA-light serving path (models, the cast-once
+engine) with the token-tail kernel (``kernels/``, sources in ``csrc/``).
 """
 
 from mrla_tpu_torch import ckpt, kernels, models, nn, ops, serving

@@ -1,5 +1,6 @@
-"""JAX/Flax variables -> the port's ``state_dict``, and a JAX serving tree
--> the port's serving params (resnet mrlal family).
+"""JAX/Flax variables -> the port's ``state_dict`` (resnet mrlal and DeiT
+families), and a JAX serving tree -> the port's serving params (resnet
+mrlal family).
 
 The exact inverse of the JAX package's ``convert_resnet_state_dict`` for
 the mrlal family, from plain numpy:
@@ -28,6 +29,23 @@ same layout) into what the port's ``prepare_inference_params`` returns:
     blocks[i]/wv [3,3,1,C]                       -> [9, C]
     blocks[i]/wq, wk, lam, bn_scale, bn_bias     -> flat fp32 vectors
     fc/k [C, classes]                            -> [classes, C]
+
+``vit_state_dict_from_jax`` is the exact inverse of the JAX package's
+``convert_vit_state_dict`` for the plain (distilled or not) and light
+variants:
+
+    params/{cls_token,dist_token,pos_embed}      -> the same names
+    params/patch_embed/proj/kernel [p,p,3,C]     -> patch_embed.proj.weight (HWIO->OIHW)
+    params/block{i}/norm{1,2}/{scale,bias}       -> blocks.{i}.norm{1,2}.{weight,bias}
+    .../attn/{qkv,proj}, .../mlp/{fc1,fc2}       -> blocks.{i}.attn.*, .mlp.* (kernel transposed)
+    .../mrla/norm{x,o}/{scale,bias}              -> blocks.{i}.mrla.norm{x,o}.{weight,bias}
+    .../mrla/lambda_t [C]                        -> blocks.{i}.mrla.lambda_t [C]
+    .../mrla/mrla/proj/w{q,k} [k]                -> blocks.{i}.mrla.mrla.W{q,k}.weight [1,1,k]
+    .../mrla/mrla/proj/wv [3,3,1,C]              -> blocks.{i}.mrla.mrla.Wv.weight [C,1,3,3]
+    params/norm, params/head, params/head_dist   -> norm.*, head.*, head_dist.*
+
+``tail_params_from_jax`` pulls one block's tail out of its Flax subtree in
+the form ``pack_tail_params`` takes.
 """
 
 from __future__ import annotations
@@ -137,3 +155,69 @@ def serving_params_from_jax(tree: Mapping, device="cuda",
             "b": vec(tree["fc"]["b"]),
         }
     return out
+
+
+def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ln(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def tail_params_from_jax(block_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The tail's weights of one Flax ``MRLAViTBlock`` subtree
+    (``variables["params"]["block{i}"]``) under the port's ``state_dict``
+    names relative to the token module (``normx.weight`` ..
+    ``mrla.Wv.weight``): what ``pack_tail_params`` takes."""
+    m = block_params["mrla"]
+    proj = m["mrla"]["proj"]
+    sd: Dict[str, torch.Tensor] = {}
+    _ln(sd, "normx", m["normx"])
+    _ln(sd, "normo", m["normo"])
+    sd["lambda_t"] = _t(m["lambda_t"]).reshape(-1)
+    sd["mrla.Wq.weight"] = _t(proj["wq"]).reshape(1, 1, -1)
+    sd["mrla.Wk.weight"] = _t(proj["wk"]).reshape(1, 1, -1)
+    sd["mrla.Wv.weight"] = _oihw(proj["wv"])
+    return sd
+
+
+def vit_state_dict_from_jax(variables: Mapping,
+                            variant: str = "light") -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of a Flax DeiT (numpy or array leaves) -> state_dict.
+    ``variant`` is ``"plain"`` (``VisionTransformer``, distilled or not) or
+    ``"light"`` (``ViTMRLA``)."""
+    if variant not in ("plain", "light"):
+        raise ValueError("variant must be 'plain' or 'light', got "
+                         f"{variant!r}")
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("cls_token", "dist_token", "pos_embed"):
+        if name in params:
+            sd[name] = _t(params[name])
+    proj = params["patch_embed"]["proj"]
+    sd["patch_embed.proj.weight"] = _oihw(proj["kernel"])
+    sd["patch_embed.proj.bias"] = _t(proj["bias"])
+    blocks = sorted((n for n in params if n.startswith("block")),
+                    key=lambda n: int(n[5:]))
+    for name in blocks:
+        p, pre = params[name], f"blocks.{int(name[5:])}"
+        _ln(sd, f"{pre}.norm1", p["norm1"])
+        _ln(sd, f"{pre}.norm2", p["norm2"])
+        _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
+        _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
+        _dense(sd, f"{pre}.mlp.fc1", p["mlp"]["fc1"])
+        _dense(sd, f"{pre}.mlp.fc2", p["mlp"]["fc2"])
+        if ("mrla" in p) != (variant == "light"):
+            raise ValueError(f"{name} does not fit variant={variant!r}")
+        if variant == "light":
+            for k, v in tail_params_from_jax(p).items():
+                sd[f"{pre}.mrla.{k}"] = v
+    _ln(sd, "norm", params["norm"])
+    _dense(sd, "head", params["head"])
+    if "head_dist" in params:
+        _dense(sd, "head_dist", params["head_dist"])
+    return sd

@@ -3,6 +3,12 @@
 Importing this package builds nothing: the kernels are compiled by nvcc at
 their first launch (``kernels/_build.py``)."""
 
+from mrla_tpu_torch.kernels.deit_token_tail import (
+    TailParams,
+    deit_token_tail,
+    deit_token_tail_reference,
+    pack_tail_params,
+)
 from mrla_tpu_torch.kernels.mrla_epilogue import (
     fused_epilogue,
     fused_epilogue_reference,
@@ -21,6 +27,9 @@ from mrla_tpu_torch.kernels.mrla_stage4 import (
 )
 
 __all__ = [
+    "TailParams",
+    "deit_token_tail",
+    "deit_token_tail_reference",
     "fused_epilogue",
     "fused_epilogue_reference",
     "mrla_block_tail_fused_next",
@@ -29,6 +38,7 @@ __all__ = [
     "mrla_light_epilogue_reference",
     "mrla_light_gate",
     "pack_stage4_params",
+    "pack_tail_params",
     "stage4_resident",
     "stage4_resident_reference",
 ]

@@ -16,7 +16,7 @@ run on the NHWC view of the same memory.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -39,14 +39,17 @@ def _resolve_heads(channels: int, heads: Optional[int],
 
 
 class MRLALightLayer(nn.Module):
-    """mrla_light_layer: sigmoid-gated single-position layer attention."""
+    """mrla_light_layer: sigmoid-gated single-position layer attention.
+    ``act_v`` is applied to V before the gate (DeiT: the exact GELU)."""
 
     def __init__(self, channels: int, heads: Optional[int] = None,
                  dim_perhead: Optional[int] = None,
                  k_size: Optional[int] = None,
+                 act_v: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.heads = _resolve_heads(channels, heads, dim_perhead)
+        self.act_v = act_v
         k = k_size or eca_kernel_size(channels)
         self.Wq = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
         self.Wk = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
@@ -62,7 +65,8 @@ class MRLALightLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = MRLAParams(self.Wq.weight, self.Wk.weight, self.Wv.weight)
-        y = mrla_light_attention(x.permute(0, 2, 3, 1), params, self.heads)
+        y = mrla_light_attention(x.permute(0, 2, 3, 1), params, self.heads,
+                                 act_v=self.act_v)
         return y.permute(0, 3, 1, 2)
 
 

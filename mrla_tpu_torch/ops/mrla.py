@@ -9,7 +9,7 @@ gate is broadcast to [B, C] by repeating each head's value d times.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -32,10 +32,11 @@ class MRLAParams(NamedTuple):
     wv: torch.Tensor
 
 
-def mrla_light_attention(x: torch.Tensor, params: MRLAParams,
-                         heads: int) -> torch.Tensor:
+def mrla_light_attention(x: torch.Tensor, params: MRLAParams, heads: int,
+                         act_v: Optional[Callable] = None) -> torch.Tensor:
     """[B, H, W, C] block output -> [B, H, W, C] gated value map (the caller
-    adds λ ⊙ o_{t-1})."""
+    adds λ ⊙ o_{t-1}).  ``act_v``, if given, is applied to V before the gate
+    (the DeiT variant passes the exact-erf GELU)."""
     b, c = x.shape[0], x.shape[-1]
     d = c // heads
     y = global_avg_pool(x)  # [B, C] fp32
@@ -43,5 +44,7 @@ def mrla_light_attention(x: torch.Tensor, params: MRLAParams,
     k = channel_conv1d(y, params.wk.float()).reshape(b, heads, d)
     attn = torch.sigmoid((q * k).sum(-1) * (1.0 / math.sqrt(d)))  # [B, g]
     v = depthwise_conv3x3(x, params.wv)
+    if act_v is not None:
+        v = act_v(v)
     gate = attn.repeat_interleave(d, dim=-1).to(v.dtype)  # [B, C]
     return v * gate[:, None, None, :]

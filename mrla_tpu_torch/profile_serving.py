@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's resnet50_mrlal forward goes.
+"""Where the device time of one of the port's serving forwards goes.
 
     python3 -m mrla_tpu_torch.profile_serving [--use-stage4]
+    python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlal_small_patch16_224
 
-Serves resnet50_mrlal (224 px, bf16, the BN-folded engine, seeded weights
-and images from ``mrla_tpu_torch/testing.py``) on one CUDA card, traces
-``FORWARDS`` forwards of batch ``BATCH`` with torch.profiler after a
-warm-up, and prints the device time by kernel group and for the busiest
-kernels, the wall time of the window and the device's idle share.  With
-``--use-stage4`` the traced forwards take the stage-kernel route.  Either
-way it then reads the device time of the last stage alone on both routes
-(a trace of the engine's block loop on the stage-3 output map).  Needs a
-CUDA card.
+Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine; a
+``deit_*`` / ``deit_mrlal_*`` arch through the DeiT engine) at 224 px in
+bf16, from seeded weights and images (``mrla_tpu_torch/testing.py``), on
+one CUDA card; traces ``FORWARDS`` forwards of batch ``BATCH`` with
+torch.profiler after a warm-up, and prints the device time by kernel group
+and for the busiest kernels, the wall time of the window and the device's
+idle share.  With ``--use-stage4`` the traced resnet forwards take the
+stage-kernel route.  For resnet50_mrlal it then reads the device time of
+the last stage alone on both routes (a trace of the engine's block loop on
+the stage-3 output map); for a ``deit_mrlal_*`` arch, the device time of
+each pass of the token-tail kernel alone at the three published widths.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,9 +41,26 @@ GROUPS = (  # first match wins, on the lower-cased kernel name
 )
 
 
-def group_of(name: str) -> str:
+DEIT_GROUPS = (
+    ("deit token-tail kernel: stats", ("deit_tail_stats_kernel",)),
+    ("deit token-tail kernel: gate", ("deit_tail_gate_kernel",)),
+    ("deit token-tail kernel: main", ("deit_tail_main_kernel",)),
+    ("attention (fused softmax(QK)V)", ("flash", "fmha", "attention")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("GELU", ("gelu",)),
+    ("matrix products (incl. patch embed)",
+     ("gemm", "nvjet", "cutlass", "xmma", "cublas", "conv", "sm90_",
+      "implicit", "splitk")),
+    ("concatenation (cls token)", ("catarray",)),
+    ("copies and casts (LayerNorm's fp32 copy, head merge)", ("copy",)),
+    ("other elementwise (residual adds, pos)",
+     ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def group_of(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -85,10 +106,35 @@ def stage4_alone(params, x, use_stage4: bool) -> tuple[float, float]:
             sum(n for _, n in per_kernel.values()) / STAGE_RUNS)
 
 
+def tail_alone(c: int) -> dict:
+    """Device microseconds per launch of each pass of the DeiT token tail
+    alone at [BATCH, 197, c], from a trace of ``STAGE_RUNS`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrla_tpu_torch.kernels import deit_token_tail
+    from mrla_tpu_torch.testing import deit_tail_case
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, ot, packed = deit_tail_case(gen, BATCH, 197, c)
+    for _ in range(3):
+        deit_token_tail(x, ot, packed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STAGE_RUNS):
+            deit_token_tail(x, ot, packed)
+        torch.cuda.synchronize()
+    return {name.split("deit_tail_")[1].split("_kernel")[0]:
+            round(t * 1e3 / STAGE_RUNS, 2)
+            for name, (t, _) in device_ms(prof).items()
+            if "deit_tail_" in name}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--arch", default="resnet50_mrlal",
+                        help="resnet50_mrlal or a deit_* / deit_mrlal_* arch")
     parser.add_argument("--use-stage4", action="store_true",
-                        help="trace the stage-kernel route")
+                        help="trace resnet50_mrlal's stage-kernel route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -97,20 +143,36 @@ def main() -> int:
 
     from mrla_tpu_torch.serving import (
         attach_stage4,
+        deit_forward,
+        prepare_deit_inference_params,
         prepare_inference_params,
         resnet_mrlal_forward,
     )
-    from mrla_tpu_torch.testing import images, serving_model
+    from mrla_tpu_torch.testing import (
+        deit_serving_model,
+        images,
+        serving_model,
+    )
 
-    model = serving_model(0)
-    params = attach_stage4(prepare_inference_params(
-        model, dtype=torch.bfloat16, device="cuda"))
-    forward = lambda xb: resnet_mrlal_forward(params, xb,
-                                              use_stage4=args.use_stage4)
+    deit = args.arch.startswith("deit")
+    if deit:
+        params = prepare_deit_inference_params(
+            deit_serving_model(args.arch, 0), device="cuda")
+        forward = lambda xb: deit_forward(params, xb)
+        route = ""
+    elif args.arch == "resnet50_mrlal":
+        params = attach_stage4(prepare_inference_params(
+            serving_model(0), dtype=torch.bfloat16, device="cuda"))
+        forward = lambda xb: resnet_mrlal_forward(
+            params, xb, use_stage4=args.use_stage4)
+        route = f", use_stage4={args.use_stage4}"
+    else:
+        parser.error(f"no serving profile for --arch {args.arch}")
+    groups_of_arch = DEIT_GROUPS if deit else GROUPS
     gen = torch.Generator().manual_seed(1)
     batches = [images(gen, BATCH).cuda()
                for _ in range(FORWARDS)]
-    for xb in batches:  # warm-up: build, cuDNN autotune, allocator
+    for xb in batches:  # warm-up: build, autotune, allocator
         forward(xb)
     torch.cuda.synchronize()
 
@@ -129,9 +191,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"window: {FORWARDS} forwards, bs{BATCH}, "
-          f"use_stage4={args.use_stage4}, wall "
-          f"{wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/forward), "
+    print(f"window: {args.arch}, {FORWARDS} forwards, bs{BATCH}{route}, "
+          f"wall {wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/forward), "
           f"device busy {busy:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
     if busy == 0:
@@ -139,18 +200,26 @@ def main() -> int:
         return 1
     groups = defaultdict(lambda: [0.0, 0])
     for name, (t, n) in per_kernel.items():
-        g = groups[group_of(name)]
+        g = groups[group_of(name, groups_of_arch)]
         g[0] += t
         g[1] += n
-    print("device time by group (ms per forward, share, launches per forward):")
+    print("device time by group (ms per forward, share, launches per "
+          "forward):")
     for g, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {g:24s} {t / FORWARDS:9.4f} {t / busy:7.3f} "
+        print(f"  {g:52s} {t / FORWARDS:9.4f} {t / busy:7.3f} "
               f"{n / FORWARDS:7.1f}")
     print("busiest kernels (ms per forward, launches per forward):")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:
         print(f"  {t / FORWARDS:9.4f} {n / FORWARDS:6.1f}  "
               f"{name[:110]}")
+    if deit:
+        if params["dim_mrla"] is not None:
+            print(f"token tail alone, bs{BATCH} (device us per launch of "
+                  f"each pass, {STAGE_RUNS} traced launches): "
+                  + "; ".join(f"C={c} {tail_alone(c)}"
+                              for c in (384, 192, 768)))
+        return 0
     alone = {False: [], True: []}
     with torch.inference_mode():
         for route in (False, True, True, False):  # in turns

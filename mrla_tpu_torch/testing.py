@@ -2,12 +2,17 @@
 profiles and on-card tests of the serving path (``chip_smoke.py``,
 ``profile_serving.py``, ``tests/test_torch_gpu.py``).
 
-Random weights alone make a poor serving check: with freshly initialised BN
-statistics and pure-noise images, every image gives almost the same logits.
+``serving_model`` (resnet50_mrlal): random weights alone make a poor
+serving check: with freshly initialised BN statistics and pure-noise
+images, every image gives almost the same logits.
 So bn3 gets a non-zero scale (it is zero-initialised, which would leave
 every residual branch idle), the BN statistics are set from a pass over
 seeded images, and the images are smooth colour fields with their own
 contrast and colour cast.
+
+``deit_serving_model``: a DeiT's LayerNorms need no calibration, but its
+weights are redrawn wider than the init's (``spread_deit_weights``), so that
+the logits show what every part of the trunk computed.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mrla_tpu_torch.kernels import pack_stage4_params
+from mrla_tpu_torch.kernels import TailParams, pack_stage4_params
 from mrla_tpu_torch.models import create_model
 from mrla_tpu_torch.serving.resnet_mrlal import _conv
 
@@ -92,3 +97,70 @@ def stage4_case(gen: torch.Generator, b: int, cin: int = 1024,
     x1 = _conv(x, p0["k1"], p0["b1"]).relu_()
     ob = _conv(x1, p0["k2"], p0["b2"], stride=2).relu_().contiguous()
     return ob, x[:, ::2, ::2, :], pack_stage4_params(blocks, dtype)
+
+
+def spread_deit_weights(model: torch.nn.Module,
+                        gen: torch.Generator) -> torch.nn.Module:
+    """Redraw a DeiT's weights in place, spread as a trained model's are
+    and not as the init's.
+
+    At the init (std 0.02) the attention and MLP branches are a hundredth
+    of the residual stream, every tail gate is 1/2 and the depthwise value
+    is small, so the logits would hardly notice a wrong ``ot``, a shifted
+    gate or a swapped tail.  Here the qkv / proj / fc weights keep their
+    input's variance (std 1/sqrt(fan_in)), LayerNorm weights are U(0.5,
+    1.5) and biases N(0, 0.5), the tail's channel taps are U(-2, 2) and its
+    depthwise weights N(0, 0.5), and the heads are N(0, 0.05).  λ keeps its
+    init, N(0, 1)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 2)[-2:]
+            if leaf[0] in ("head", "head_dist"):
+                if leaf[1] == "weight":
+                    p.normal_(0.0, 0.05, generator=gen)
+            elif leaf[0] in ("qkv", "proj", "fc1", "fc2") \
+                    and "patch_embed" not in name:
+                if leaf[1] == "weight":
+                    p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif leaf[0].startswith("norm"):
+                if leaf[1] == "weight":
+                    p.uniform_(0.5, 1.5, generator=gen)
+                else:
+                    p.normal_(0.0, 0.5, generator=gen)
+            elif leaf[0] in ("Wq", "Wk"):
+                p.uniform_(-2.0, 2.0, generator=gen)
+            elif leaf[0] == "Wv":
+                p.normal_(0.0, 0.5, generator=gen)
+    return model
+
+
+def deit_serving_model(arch: str, seed: int, **model_kw) -> torch.nn.Module:
+    """A registered ``deit_*`` / ``deit_mrlal_*`` arch on the CPU from
+    ``seed``, in eval mode, its weights spread by
+    :func:`spread_deit_weights`."""
+    gen = torch.Generator().manual_seed(seed)
+    model = create_model(arch, device="cpu", generator=gen, **model_kw)
+    return spread_deit_weights(model, gen).eval()
+
+
+def deit_tail_case(gen: torch.Generator, b: int, n: int = 197, c: int = 384,
+                   ktap: int = 5, dtype: torch.dtype = torch.bfloat16):
+    """Seeded operands (x, ot, packed) of ``deit_token_tail`` on ``gen``'s
+    device: tokens of order 1 with a mean and a scale of their own per row,
+    LayerNorm affines away from the identity, λ ~ N(0, 1), depthwise taps
+    N(0, 0.3) and channel taps U(-1, 1)."""
+    dev = gen.device
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+
+    def tokens():
+        t = rnd(b, n, c) * (0.5 + torch.rand(b, n, 1, generator=gen,
+                                             device=dev))
+        return (t + 0.5 * rnd(b, n, 1)).to(dtype)
+
+    vec = torch.cat([
+        torch.stack([1.0 + 0.2 * rnd(c), 0.2 * rnd(c),
+                     1.0 + 0.2 * rnd(c), 0.2 * rnd(c), rnd(c)]),
+        0.3 * rnd(9, c),
+    ])
+    taps = torch.rand(2, ktap, generator=gen, device=dev) * 2 - 1
+    return tokens(), tokens(), TailParams(vec.contiguous(), taps)

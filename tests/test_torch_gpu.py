@@ -10,13 +10,17 @@ Tolerances: the kernel and its plain version round the same fp32 value,
 summed in another order, to bf16 once, so y agrees to one bf16 ulp at the
 largest |y|; x1 to two (its own rounding plus y's rare one-ulp flips).
 The stage kernel's y to two as well: its own rounding, plus the rare
-one-ulp flips of the bf16 intermediates (y, x1, o) that travel on.
+one-ulp flips of the bf16 intermediates (y, x1, o) that travel on.  The
+DeiT token tail's out to one, as y.
 """
 
 import pytest
 import torch
 
 from mrla_tpu_torch.kernels import (
+    TailParams,
+    deit_token_tail,
+    deit_token_tail_reference,
     fused_epilogue,
     fused_epilogue_reference,
     mrla_block_tail_fused_next,
@@ -26,10 +30,12 @@ from mrla_tpu_torch.kernels import (
     stage4_resident_reference,
 )
 from mrla_tpu_torch.serving import (
+    deit_forward,
+    prepare_deit_inference_params,
     prepare_inference_params,
     resnet_mrlal_forward,
 )
-from mrla_tpu_torch.testing import stage4_case
+from mrla_tpu_torch.testing import deit_tail_case, stage4_case
 
 pytestmark = pytest.mark.gpu
 
@@ -188,3 +194,71 @@ def test_gate_runs_on_the_card(cuda):
     assert g.shape == (2, 256) and g.device.type == "cuda"
     want = mrla_light_gate(a["out"].cpu(), wq.cpu(), wq.cpu(), 8)
     torch.testing.assert_close(g.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+# the three published widths, a batch whose B * N is no multiple of 8, a
+# 4x4 and a 3x3 grid, 3-tap channel convs (C = 64) and heads of 32 channels
+@pytest.mark.parametrize("b,n,c,d,ktap", [(16, 197, 384, 16, 5),
+                                          (3, 197, 384, 16, 5),
+                                          (5, 197, 192, 16, 5),
+                                          (3, 197, 768, 16, 5),
+                                          (3, 17, 128, 16, 5),
+                                          (2, 10, 64, 32, 3),
+                                          (1, 577, 1024, 16, 7)])
+def test_deit_tail_kernel_matches_plain(cuda, b, n, c, d, ktap):
+    x, ot, packed = deit_tail_case(cuda, b, n, c, ktap)
+    deit_token_tail.counter.reset()
+    out = deit_token_tail(x, ot, packed, d)
+    torch.cuda.synchronize()
+    assert deit_token_tail.counter.by_shape == {(b, n, c): 1}
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert out.data_ptr() not in (x.data_ptr(), ot.data_ptr())
+    _assert_ulps(out, deit_token_tail_reference(x, ot, packed, d), 1)
+
+
+def test_deit_tail_cls_rows_do_not_depend_on_ot(cuda):
+    x, ot, packed = deit_tail_case(cuda, 4, 197, 384)
+    out = deit_token_tail(x, ot, packed)
+    out2 = deit_token_tail(x, ot * 2, packed)
+    assert torch.equal(out[:, 0], out2[:, 0])
+    assert not torch.equal(out[:, 1:], out2[:, 1:])
+
+
+# the C entry point refuses these with cudaErrorInvalidValue (1): C no
+# multiple of 32, C above 1024, an even number of channel taps
+@pytest.mark.parametrize("c,d,ktap", [(48, 16, 5), (2048, 16, 5),
+                                      (64, 16, 4)])
+def test_deit_tail_entry_point_rejects_unsupported_shapes(cuda, c, d, ktap):
+    x, ot, packed = deit_tail_case(cuda, 2, 17, c, ktap)
+    deit_token_tail.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        deit_token_tail(x, ot, packed, d)
+    assert deit_token_tail.counter.launches == 0
+    torch.cuda.synchronize()  # no error was left pending on the card
+    with pytest.raises(TypeError, match="bfloat16"):
+        deit_token_tail(x.float(), ot.float(), packed, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        deit_token_tail(x, ot, TailParams(packed.vec.t().contiguous().t(),
+                                          packed.taps), d)
+
+
+def test_deit_serving_routes_through_the_tail_kernel(cuda):
+    """A 3-block ViTMRLA of width 64: one launch per block, and the bf16
+    engine on the card agrees with the fp32 engine on the CPU."""
+    from mrla_tpu_torch.models import ViTMRLA
+    from mrla_tpu_torch.testing import spread_deit_weights
+
+    gen = torch.Generator().manual_seed(0)
+    model = spread_deit_weights(
+        ViTMRLA(embed_dim=64, depth=3, num_heads=2, num_classes=10,
+                generator=gen), gen)
+    x = torch.randn(4, 224, 224, 3, generator=gen)
+    want = deit_forward(
+        prepare_deit_inference_params(model, device="cpu",
+                                      dtype=torch.float32), x)
+    params = prepare_deit_inference_params(model, device="cuda")
+    deit_token_tail.counter.reset()
+    got = deit_forward(params, x.cuda()).cpu()
+    assert deit_token_tail.counter.by_shape == {(4, 197, 64): 3}
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0.08, rtol=0.05)
