@@ -12,9 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      each kernel are printed;
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
      card, in bf16, at every shape the main paths (224 px, batch 128) give
-     it, with its time (CUDA events), its bound and the plain version's
-     time; the DeiT token tail also at the other two published widths and
-     at a batch of 3, and its cls rows with ot doubled;
+     it, and the epilogue and mega-tail also at every shape the detection
+     path (800 x 1344, batch 8) gives them, with its time (CUDA events),
+     its bound and the plain version's time; the DeiT token tail also at
+     the other two published widths and at a batch of 3, and its cls rows
+     with ot doubled;
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
@@ -38,9 +40,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward at (128, 197, 384), finite logits, the same top-1 and
      logit-error check (DEIT_LOGIT_ERROR_TOL), and four injected wiring
      faults that must each fail it;
-  7. one JSON line listing each ported kernel, its per-forward numbers
+  7. two-stage detection: faster_rcnn_r50mrlal_fpn_1x_coco (and the mask
+     preset) at 800 x 1344, batch 8, bf16, full depth, 80 classes, through
+     prepare_detect_params / two_stage_detections, from a seeded detector
+     (mrla_tpu_torch/testing.py: detector_serving_model).  First the
+     RoIAlign kernel against its plain version on the rois the path makes
+     (8 x 1000 proposals at 7 x 7; 8 x 100 detections at 14 x 14), in bf16
+     and in fp32, with its time, bound and plain time.  Then 2 requests on
+     each preset with the launches counted by shape (RoIAlign 1 per
+     forward, 2 with masks; mega-tail 12 and epilogue 4, the table below),
+     finite outputs and a detection in every image; against the port's fp32
+     forward on the CPU (the nn.Module MaskRCNN, 2 images): the pyramid
+     P2..P6, and the RoI features and the box head's (cls, reg) on the
+     CPU's proposals, each within its tolerance, while each of four
+     injected wiring faults (the box head flattening [7, 7, C] where
+     [C, 7, 7] is wanted, rois with x and y swapped, the level mapping one
+     level up, one FPN top-down add left out) fails it; img/s over 20
+     forwards of each preset and the peak memory;
+  8. one JSON line listing each ported kernel, its per-forward numbers
      weighted by the launches counted by shape on its main path;
-  8. the nvidia-smi line, then the result line
+  9. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It needs one CUDA card and exits non-zero without printing a result when
@@ -103,6 +122,41 @@ MEGATAIL_SHAPES = {
     (BATCH, 28, 28, 512, 256): ("layer2_3", 1),
 }
 
+# The detection path: two-stage presets at the daemon's defaults (batch 8,
+# 800 x 1344, bf16, 1000 proposals, 100 detections, score_thr 0.05).  Its
+# trunk sends a block to the mega-tail only where the kernel covers (C, next
+# C1) (megatail_covers): not layer3_5 (next C1 512) nor stage 4 (C 2048).
+DET_PRESET = "faster_rcnn_r50mrlal_fpn_1x_coco"
+MASK_PRESET = "mask_rcnn_r50mrlal_fpn_1x_coco"
+DET_PATH, MASK_PATH = "faster_rcnn_r50mrlal", "mask_rcnn_r50mrlal"
+DET_BATCH, DET_HW, DET_REQUESTS = 8, (800, 1344), 2
+DET_MEGATAIL_SHAPES = {
+    (DET_BATCH, 200, 336, 256, 64): ("det layer1_0..1", 2),
+    (DET_BATCH, 200, 336, 256, 128): ("det layer1_2", 1),
+    (DET_BATCH, 100, 168, 512, 128): ("det layer2_0..2", 3),
+    (DET_BATCH, 100, 168, 512, 256): ("det layer2_3", 1),
+    (DET_BATCH, 50, 84, 1024, 256): ("det layer3_0..4", 5),
+}
+DET_EPILOGUE_SHAPES = {
+    (DET_BATCH, 50, 84, 1024): ("det layer3_5", 1),
+    (DET_BATCH, 25, 42, 2048): ("det layer4_0..2", 3),
+}
+# RoIAlign, keyed (B, P, out, C): the box head's input on both presets, the
+# mask head's on the mask preset
+ROI_SHAPES = {(DET_BATCH, 1000, 7, 256): ("box head", 1)}
+MASK_ROI_SHAPES = {(DET_BATCH, 100, 14, 256): ("mask head", 1)}
+# fp32 RoIAlign: a bin sums at most 4 corners x 7 x 7 slots of weights that
+# add up to at most 1, so reassociation moves it by at most that many fp32
+# roundings of the largest |feature|
+ROI_FP32_TERMS = 4 * 7 * 7
+ROI_FP32_OPS = 8  # per sample and channel: 4 corners, multiply and add
+# Errors of the served bf16 detection path against the port's fp32 forward
+# on the CPU (see det_errors): the pyramid and the RoI features relative to
+# their norm, the box head's (cls, reg) relative to their image- and
+# roi-dependent part.  Set between the sound reading and the least injected
+# fault (both printed by this script; readings in PERF.md).
+DET_TOLS = {"pyramid": 0.08, "roi": 0.08, "head": 0.15}
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -135,13 +189,14 @@ def bound(nbytes: float, mm_flops: float, ew_flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def tail_inputs(gen, hw, c):
+def tail_inputs(gen, shape):
     dev = "cuda"
+    b, h, w, c = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     return dict(
-        out=rnd(BATCH, hw, hw, c).mul_(0.5).relu_().bfloat16(),
-        identity=rnd(BATCH, hw, hw, c).bfloat16(),
-        gate=torch.sigmoid(rnd(BATCH, c)),
+        out=rnd(b, h, w, c).mul_(0.5).relu_().bfloat16(),
+        identity=rnd(b, h, w, c).bfloat16(),
+        gate=torch.sigmoid(rnd(b, c)),
         wv=rnd(9, c).mul_(0.3),
         lam=rnd(c),
         bn_scale=rnd(c).mul_(0.2).add_(1.0),
@@ -164,9 +219,10 @@ def check_kernels(lib):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"epilogue": {}, "megatail": {}}
-    for shape, (stage, _) in EPILOGUE_SHAPES.items():
-        _, hw, _, c = shape
-        a = tail_inputs(gen, hw, c)
+    for shape, (stage, _) in {**EPILOGUE_SHAPES,
+                              **DET_EPILOGUE_SHAPES}.items():
+        b, h, w, c = shape
+        a = tail_inputs(gen, shape)
         y = fused_epilogue(**a)
         y_ref = fused_epilogue_reference(**a)
         err = (y.float() - y_ref.float()).abs().max().item()
@@ -175,15 +231,15 @@ def check_kernels(lib):
                                           "lam", "bn_scale", "bn_bias")]
         stream = torch.cuda.current_stream().cuda_stream
         ms = cuda_ms(lambda: lib.mrla_epilogue_bf16(
-            *ptrs, y.data_ptr(), BATCH, hw, hw, c, stream))
+            *ptrs, y.data_ptr(), b, h, w, c, stream))
         plain_ms = cuda_ms(lambda: fused_epilogue_reference(**a), iters=5)
-        n = BATCH * hw * hw * c
-        bound_ms, by = bound(3 * n * 2 + BATCH * c * 4 + 12 * c * 4, 0,
+        n = b * h * w * c
+        bound_ms, by = bound(3 * n * 2 + b * c * 4 + 12 * c * 4, 0,
                              TAIL_FP32_OPS * n)
         rows["epilogue"][shape] = dict(
-            shape=f"{stage} [{BATCH},{hw},{hw},{c}]", max_abs_err=err,
+            shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=err,
             tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        print(f"epilogue {stage} [{BATCH},{hw},{hw},{c}] bf16: max|Δy| {err:.3g}"
+        print(f"epilogue {stage} [{b},{h},{w},{c}] bf16: max|Δy| {err:.3g}"
               f" (tol {tol:.3g}: 1 bf16 ulp at max|y|; both round one fp32"
               f" value summed in another order) | kernel {ms:.4f} ms, bound"
               f" {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
@@ -191,9 +247,10 @@ def check_kernels(lib):
             raise AssertionError(f"epilogue {stage}: {err} > {tol}")
         del a, y, y_ref
 
-    for shape, (stage, _) in MEGATAIL_SHAPES.items():
-        _, hw, _, c, c1 = shape
-        a = tail_inputs(gen, hw, c)
+    for shape, (stage, _) in {**MEGATAIL_SHAPES,
+                              **DET_MEGATAIL_SHAPES}.items():
+        b, h, w, c, c1 = shape
+        a = tail_inputs(gen, shape[:4])
         w1 = (torch.randn(c1, c, generator=gen, device="cuda")
               / c ** 0.5).bfloat16()
         b1 = torch.randn(c1, generator=gen, device="cuda") * 0.2
@@ -209,19 +266,19 @@ def check_kernels(lib):
         stream = torch.cuda.current_stream().cuda_stream
         ms = cuda_ms(lambda: lib.mrla_megatail_bf16(
             *ptrs, w1.data_ptr(), b1.data_ptr(), y.data_ptr(), x1.data_ptr(),
-            BATCH, hw, hw, c, c1, stream))
+            b, h, w, c, c1, stream))
         plain_ms = cuda_ms(lambda: mrla_block_tail_fused_next_reference(
             **a, w1_next=w1, b1_next=b1), iters=5)
-        p = BATCH * hw * hw
+        p = b * h * w
         n = p * c
         nbytes = (3 * n * 2 + p * c1 * 2 + c * c1 * 2 + c1 * 4
-                  + BATCH * c * 4 + 12 * c * 4)
+                  + b * c * 4 + 12 * c * 4)
         bound_ms, by = bound(nbytes, 2 * p * c * c1, TAIL_FP32_OPS * n)
         rows["megatail"][shape] = dict(
-            shape=f"{stage} [{BATCH},{hw},{hw},{c}] C1={c1}",
+            shape=f"{stage} [{b},{h},{w},{c}] C1={c1}",
             max_abs_err=max(err_y, err_x1), tol=min(tol_y, tol_x1), ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        print(f"megatail {stage} [{BATCH},{hw},{hw},{c}] C1={c1} bf16: "
+        print(f"megatail {stage} [{b},{h},{w},{c}] C1={c1} bf16: "
               f"max|Δy| {err_y:.3g} (tol {tol_y:.3g}: 1 bf16 ulp at max|y|), "
               f"max|Δx1| {err_x1:.3g} (tol {tol_x1:.3g}: 2 bf16 ulps at "
               f"max|x1|, its own rounding plus y's one-ulp flips) | kernel "
@@ -343,57 +400,68 @@ def all_counters():
         deit_token_tail,
         fused_epilogue,
         mrla_block_tail_fused_next,
+        roi_align_patch,
         stage4_resident,
     )
 
     return {"megatail": mrla_block_tail_fused_next.counter,
             "epilogue": fused_epilogue.counter,
             "stage4": stage4_resident.counter,
-            "deit_tail": deit_token_tail.counter}
+            "deit_tail": deit_token_tail.counter,
+            "roi_align": roi_align_patch.counter}
 
 
-def counted(forward, batches, route: str, want: dict):
+def check_logits_out(out) -> None:
+    if out.shape != (BATCH, 1000) or not torch.isfinite(out).all():
+        raise AssertionError("logits not finite or of the wrong shape")
+
+
+def counted(forward, batches, route: str, want: dict,
+            check_out=check_logits_out, desc=f"{PX}px bs{BATCH} bf16"):
     """Drive a main path: every wrapper's counts are set to 0 just before
     the requests and read just after.  The launches per forward by shape
-    must be exactly ``want`` and the logits finite.  Returns (logits,
-    launches, launches per forward by shape)."""
+    must be exactly ``want``, and ``check_out`` must pass on every output.
+    Returns (outputs, launches, launches per forward by shape)."""
     counters = all_counters()
     for c in counters.values():
         c.reset()
-    logits = [forward(xb) for xb in batches]
+    outs = [forward(xb) for xb in batches]
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    per_forward = {k: {s: n / REQUESTS for s, n in c.by_shape.items()}
+    per_forward = {k: {s: n / len(batches) for s, n in c.by_shape.items()}
                    for k, c in counters.items()}
-    print(f"serving {route}, {PX}px bs{BATCH} bf16, {REQUESTS} requests: "
+    print(f"serving {route}, {desc}, {len(batches)} requests: "
           f"launches {launches}; per forward by shape {per_forward}")
     if per_forward != want:
         raise AssertionError(f"{route}: launches per forward "
                              f"{per_forward} != {want}")
-    for lg in logits:
-        if lg.shape != (BATCH, 1000) or not torch.isfinite(lg).all():
-            raise AssertionError(f"{route}: logits not finite or of "
-                                 "the wrong shape")
-    return logits, launches, per_forward
+    for out in outs:
+        try:
+            check_out(out)
+        except AssertionError as e:
+            raise AssertionError(f"{route}: {e}") from None
+    return outs, launches, per_forward
 
 
-def throughput(forward, batches, route: str, smi: str):
+def throughput(forward, batches, route: str, smi: str,
+               consume=lambda out: out.sum(), batch=BATCH,
+               desc=f"{PX}px bs{BATCH} bf16"):
     """img/s of ``forward`` over TIMED_FORWARDS forwards ending in a
     synchronize, after two, every output consumed; and the peak memory."""
     torch.cuda.reset_peak_memory_stats()
     total = torch.zeros((), device="cuda")
     for xb in batches[:2]:
-        total += forward(xb).sum()
+        total += consume(forward(xb))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(TIMED_FORWARDS):  # every output consumed
-        total += forward(batches[i % REQUESTS]).sum()
+        total += consume(forward(batches[i % len(batches)]))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if not torch.isfinite(total):
-        raise AssertionError("non-finite logits in the timed run")
-    print(f"throughput {route}, {PX}px bs{BATCH} bf16: "
-          f"{TIMED_FORWARDS * BATCH / dt:.1f} img/s "
+        raise AssertionError("non-finite outputs in the timed run")
+    print(f"throughput {route}, {desc}: "
+          f"{TIMED_FORWARDS * batch / dt:.1f} img/s "
           f"({dt / TIMED_FORWARDS * 1e3:.2f} ms/forward over "
           f"{TIMED_FORWARDS} forwards), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {smi}")
@@ -414,7 +482,7 @@ def serve(smi: str):
     host_batches = [images(gen, BATCH, PX) for _ in range(REQUESTS)]
     batches = [xb.cuda() for xb in host_batches]
     tables = {"megatail": MEGATAIL_SHAPES, "epilogue": EPILOGUE_SHAPES,
-              "stage4": STAGE4_SHAPES, "deit_tail": {}}
+              "stage4": STAGE4_SHAPES, "deit_tail": {}, "roi_align": {}}
     stage4_epilogues = {s: v for s, v in EPILOGUE_SHAPES.items()
                         if v[0] == "stage4"}
     with torch.no_grad():
@@ -647,6 +715,311 @@ def check_faults(params, x, ref, use_stage4: bool):
         raise AssertionError(f"the logit check misses the faults {missed}")
 
 
+def roi_work(feats, geom, out_size: int, smax: int, out_bytes: int):
+    """(bytes, fp32 operations) that one RoIAlign over ``geom`` needs on
+    this data: the pyramid cells the rois' samples touch (the union of
+    their footprints; with the adaptive grid every cell between a roi's
+    first and last sample is touched) read once, the output written once,
+    the geometry read once; 4 corners x (multiply, add) per live sample and
+    channel."""
+    from mrla_tpu_torch.detect.roi_align import axis_samples
+
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    g = geom.reshape(-1, geom.shape[-1])
+    p = geom.shape[1]
+    lvl = g[:, 7].long()
+    img = torch.arange(b, device=g.device).repeat_interleave(p)
+    hs = torch.tensor([f.shape[1] for f in feats], device=g.device)
+    ws = torch.tensor([f.shape[2] for f in feats], device=g.device)
+    ylo, yhi, wylo, wyhi = axis_samples(g[:, 0], g[:, 2], g[:, 4], hs[lvl],
+                                        out_size, smax)
+    xlo, xhi, wxlo, wxhi = axis_samples(g[:, 1], g[:, 3], g[:, 5], ws[lvl],
+                                        out_size, smax)
+    live_y, live_x = (wylo + wyhi) > 0, (wxlo + wxhi) > 0
+    valid = g[:, 6] > 0
+    n_y = live_y.flatten(1).sum(1).double()
+    n_x = live_x.flatten(1).sum(1).double()
+    ops = (valid * n_y * n_x).sum().item() * c * ROI_FP32_OPS
+    keep = valid & (n_y > 0) & (n_x > 0)
+    big = 1 << 30
+    r0 = torch.where(live_y, ylo, big).flatten(1).amin(1)
+    r1 = torch.where(live_y, yhi, -1).flatten(1).amax(1)
+    c0 = torch.where(live_x, xlo, big).flatten(1).amin(1)
+    c1 = torch.where(live_x, xhi, -1).flatten(1).amax(1)
+    cells = 0
+    for lv, f in enumerate(feats):
+        m = keep & (lvl == lv)
+        h, w = f.shape[1:3]
+        diff = torch.zeros(b, h + 1, w + 1, device=g.device)
+        for rr, cc, sign in ((r0, c0, 1.0), (r0, c1 + 1, -1.0),
+                             (r1 + 1, c0, -1.0), (r1 + 1, c1 + 1, 1.0)):
+            diff.index_put_((img[m], rr[m], cc[m]),
+                            torch.full((int(m.sum()),), sign,
+                                       device=g.device), accumulate=True)
+        cells += int((diff.cumsum(1).cumsum(2)[:, :h, :w] > 0.5).sum())
+    nbytes = (cells * c * feats[0].element_size()
+              + g.shape[0] * out_size ** 2 * c * out_bytes + g.numel() * 4)
+    return nbytes, ops
+
+
+def library_roi_align_ms(feats, geom, out_size: int, strides):
+    """torchvision.ops.roi_align per level (aligned, adaptive grid) on the
+    same rois, where torchvision is installed; else None.  A yardstick
+    only: the port never calls it."""
+    try:
+        from torchvision.ops import roi_align
+    except ImportError:
+        return None
+    g = geom.reshape(-1, geom.shape[-1])
+    p = geom.shape[1]
+    img = torch.arange(feats[0].shape[0], device=g.device).repeat_interleave(p)
+    per_level = []
+    for lv, (f, st) in enumerate(zip(feats, strides)):
+        m = g[:, 7] == lv
+        y1, x1 = g[m, 0] + 0.5, g[m, 1] + 0.5  # back to image coordinates
+        y2 = y1 + g[m, 2] * out_size
+        x2 = x1 + g[m, 3] * out_size
+        boxes = torch.stack([img[m].float(), x1 * st, y1 * st, x2 * st,
+                             y2 * st], 1)
+        per_level.append((f.permute(0, 3, 1, 2), boxes, 1.0 / st))
+    return cuda_ms(lambda: [roi_align(f, bx, out_size, sc, 0, True)
+                            for f, bx, sc in per_level])
+
+
+def check_roi_align(params):
+    """The RoIAlign kernel against its plain version on the rois the
+    detection path makes from seeded images: the proposals of the box head
+    (8 x 1000, 7 x 7) and the detections of the mask head (8 x 100,
+    14 x 14), through the wrapper in the path's bf16 form, and through the
+    launcher in the fp32 form; both held to the plain version in fp32."""
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.detect.two_stage import ROI_STRIDES
+    from mrla_tpu_torch.kernels.roialign_patch import (
+        roi_align_kernel,
+        roi_align_patch,
+    )
+    from mrla_tpu_torch.serving import two_stage_detections
+    from mrla_tpu_torch.testing import images
+
+    roi_inputs = []  # (feats, rois, valid, out) of each RoIAlign stage
+
+    def keep_roi_inputs(name, fn, *args, **kw):
+        if name.startswith("RoIAlign"):
+            roi_inputs.append(args)
+        return fn(*args, **kw)
+
+    x = images(torch.Generator().manual_seed(4), DET_BATCH, DET_HW).to("cuda")
+    two_stage_detections(params, x, MASK_PRESET, stage=keep_roi_inputs)
+    feats = roi_inputs[0][0]
+    pyramid = [f.contiguous() for f in feats[:4]]
+    pyramid32 = [f.float() for f in pyramid]
+    cases = {next(iter(ROI_SHAPES)): roi_inputs[0][1:],
+             next(iter(MASK_ROI_SHAPES)): roi_inputs[1][1:]}
+    rows = {}
+    for shape, (rois, rv, o) in cases.items():
+        label = {**ROI_SHAPES, **MASK_ROI_SHAPES}[shape][0]
+        got = roi_align_patch(pyramid, rois, rv, ROI_STRIDES, o, 0)
+        geom, smax = roi_geometry(rois, rv, [f.shape[1:3] for f in pyramid],
+                                  ROI_STRIDES, o, 0)
+        want = roi_align_reference(pyramid32, geom, o, smax)
+        err = (got.float() - want).abs().max().item()
+        tol = ulp_tol(want, 1)
+        got32 = roi_align_kernel(pyramid32, geom, o, smax)
+        err32 = (got32 - want).abs().max().item()
+        tol32 = ROI_FP32_TERMS * 2.0 ** -24 * max(
+            f.abs().max().item() for f in pyramid32)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: roi_align_kernel(pyramid, geom, o, smax))
+        ms32 = cuda_ms(lambda: roi_align_kernel(pyramid32, geom, o, smax))
+        plain_ms = cuda_ms(lambda: roi_align_reference(pyramid, geom, o, smax),
+                           iters=3, warmup=1)
+        nbytes, ops = roi_work(pyramid, geom, o, smax, 2)
+        bound_ms, by = bound(nbytes, 0, ops)
+        lib_ms = library_roi_align_ms(pyramid, geom, o, ROI_STRIDES)
+        g = geom.reshape(-1, geom.shape[-1])
+        live = g[:, 6] > 0
+        levels = torch.bincount(g[live, 7].long(), minlength=4).tolist()
+        mean_g = (g[live, 4] * g[live, 5]).mean().item()
+        rows[shape] = dict(
+            shape=f"{label} [{shape[0]},{shape[1]}] rois, out {o}x{o}, "
+                  f"C {shape[3]}", max_abs_err=max(err, err32), tol=tol,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib_ms, fp32_ms=ms32)
+        print(f"roi_align {label} {list(got.shape)}: valid rois "
+              f"{int(live.sum())}, by level {levels}, mean gy*gx "
+              f"{mean_g:.2f}; bf16 max|Δ| {err:.3g} (tol {tol:.3g}: 1 bf16 "
+              f"ulp at max|out| = {want.abs().max().item():.3g}; both round "
+              f"one fp32 value summed in another order); fp32 max|Δ| "
+              f"{err32:.3g} (tol {tol32:.3g}: {ROI_FP32_TERMS} fp32 "
+              f"roundings of max|feature|) | kernel {ms:.4f} ms (fp32 "
+              f"{ms32:.4f}), bound {bound_ms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'n/a (no torchvision)' if lib_ms is None else lib_ms}")
+        if not (err <= tol and err32 <= tol32):
+            raise AssertionError(f"roi_align {label}: bf16 {err} > {tol} or "
+                                 f"fp32 {err32} > {tol32}")
+        del got, got32, want
+    return rows
+
+
+def check_detections(out) -> None:
+    boxes, scores, labels, valid = out[:4]
+    b, m = DET_BATCH, 100
+    if (boxes.shape != (b, m, 4) or scores.shape != (b, m)
+            or labels.shape != (b, m) or valid.shape != (b, m)):
+        raise AssertionError("detections of the wrong shape")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("detections not finite")
+    if valid.sum(1).min() < 1:
+        raise AssertionError(f"an image without detections: "
+                             f"{valid.sum(1).tolist()}")
+    if len(out) > 4 and (out[4].shape != (b, m, 28, 28)
+                         or not torch.isfinite(out[4]).all()):
+        raise AssertionError("masks not finite or of the wrong shape")
+
+
+def rel_err(got, ref) -> float:
+    return ((got.float().cpu() - ref).norm() / ref.norm()).item()
+
+
+def det_errors(params, x2, ref) -> dict:
+    """The served bf16 path on 2 images against the port's fp32 forward on
+    the CPU (``ref``: the module's outputs and its RoI features ``roi``):
+    the pyramid (largest relative error of P2..P6), the RoI features on
+    the CPU's proposals (relative), and the box head's
+    (cls, reg) on them, relative to their roi-dependent part (with random
+    weights much of each output is shared by every roi)."""
+    from mrla_tpu_torch.serving import detect as det
+
+    with torch.inference_mode():
+        feats = det.detect_forward(params, x2)
+        pyramid = max(rel_err(g, r) for g, r in zip(feats, ref["feats"]))
+        props = ref["proposals"].to("cuda")
+        pvalid = ref["proposal_valid"].to("cuda")
+        roi = det.roi_feats(feats, props, pvalid, 7)
+        cls, reg = det.bbox_head(params["bbox_head"], roi)
+        head = max(
+            ((g.float().cpu() - r).norm() / (r - r.mean(1, keepdim=True))
+             .norm()).item()
+            for g, r in ((cls, ref["cls"]), (reg, ref["reg"])))
+        return {"pyramid": pyramid, "roi": rel_err(roi, ref["roi"]),
+                "head": head}
+
+
+# flatten: the box head's first fc in mmdet's [C, 7, 7] column order on
+# NHWC-flattened RoI features; xy: rois with x and y swapped; level: the
+# level mapping one level up; fpn_add: the top-down add into P4 left out
+DET_FAULTS = {"flatten": "head", "xy": "roi", "level": "roi",
+              "fpn_add": "pyramid"}
+
+
+def faulty_det_errors(params, x2, ref, model, kind: str) -> dict:
+    """det_errors of the served path with one wiring fault (DET_FAULTS)."""
+    import mrla_tpu_torch.detect.fpn as fpn_mod
+    import mrla_tpu_torch.detect.roi_align as ra
+    import mrla_tpu_torch.serving.detect as det
+
+    roi_feats, levels, up = det.roi_feats, ra.map_roi_levels, \
+        fpn_mod.upsample_nearest_to
+    p = params
+    if kind == "flatten":
+        w0 = model.roi_head.bbox_head.shared_fcs[0].weight
+        p = {**params, "bbox_head": {
+            **params["bbox_head"],
+            "fc0": (w0.detach().to("cuda", torch.bfloat16).contiguous(),
+                    params["bbox_head"]["fc0"][1])}}
+    elif kind == "xy":
+        det.roi_feats = lambda feats, rois, *a: roi_feats(
+            feats, rois[..., [1, 0, 3, 2]], *a)
+    elif kind == "level":
+        ra.map_roi_levels = lambda rois, n, *a: (
+            levels(rois, n, *a) + 1).clamp(max=n - 1)
+    else:
+        calls = itertools.count()
+        fpn_mod.upsample_nearest_to = lambda x, h, w: (
+            up(x, h, w) * (0.0 if next(calls) == 0 else 1.0))
+    try:
+        return det_errors(p, x2, ref)
+    finally:
+        det.roi_feats, ra.map_roi_levels = roi_feats, levels
+        fpn_mod.upsample_nearest_to = up
+
+
+def serve_detect(smi: str):
+    """The detection main paths: the RoIAlign kernel check on the path's
+    rois, the counted requests of both presets, the check against the fp32
+    CPU forward with its four injected faults, and throughput.  Returns
+    (RoIAlign rows, launches, launches per forward by shape) keyed by
+    path."""
+    from mrla_tpu_torch.serving import (
+        prepare_detect_params,
+        two_stage_detections,
+    )
+    from mrla_tpu_torch.testing import detector_serving_model, images
+
+    t0 = time.perf_counter()
+    # one seeded Mask R-CNN: the faster preset runs its box path
+    model = detector_serving_model(0, MASK_PRESET)
+    params = prepare_detect_params(model, dtype=torch.bfloat16,
+                                   device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    host = [images(gen, DET_BATCH, DET_HW) for _ in range(DET_REQUESTS)]
+    batches = [xb.to("cuda") for xb in host]
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ref = model(host[0][:2])  # the port's fp32 CPU forward
+        ref["roi"] = model.roi_feats(ref["feats"], ref["proposals"],
+                                     ref["proposal_valid"])
+    print(f"detector: seeded and spread in {t1 - t0:.1f} s; fp32 CPU "
+          f"forward of 2 images in {time.perf_counter() - t1:.1f} s")
+
+    rows = check_roi_align(params)
+    desc = f"{DET_HW[0]}x{DET_HW[1]} bs{DET_BATCH} bf16"
+    launches, per_forward = {}, {}
+    for path, preset, extra in ((DET_PATH, DET_PRESET, {}),
+                                (MASK_PATH, MASK_PRESET, MASK_ROI_SHAPES)):
+        want = {k: {} for k in all_counters()}
+        want["megatail"] = {s: n for s, (_, n) in DET_MEGATAIL_SHAPES.items()}
+        want["epilogue"] = {s: n for s, (_, n) in DET_EPILOGUE_SHAPES.items()}
+        want["roi_align"] = {s: n for s, (_, n) in
+                             {**ROI_SHAPES, **extra}.items()}
+        outs, launches[path], per_forward[path] = counted(
+            lambda xb, preset=preset: two_stage_detections(params, xb,
+                                                           preset),
+            batches, path, want, check_detections, desc)
+        print(f"{path}: detections per image {outs[0][3].sum(1).tolist()}, "
+              f"labels of image 0 {outs[0][2][0, :8].tolist()}, scores "
+              f"{[round(v, 3) for v in outs[0][1][0, :4].tolist()]}")
+        del outs
+
+    x2 = host[0][:2].to("cuda")
+    errs = det_errors(params, x2, ref)
+    print(f"{DET_PATH} against the fp32 CPU forward (2 images): "
+          + ", ".join(f"{k} {v:.4g} (tol {DET_TOLS[k]})"
+                      for k, v in errs.items()))
+    over = [k for k, v in errs.items() if not v <= DET_TOLS[k]]
+    if over:
+        raise AssertionError(f"{DET_PATH}: {over} beyond tolerance")
+    for kind, metric in DET_FAULTS.items():
+        fe = faulty_det_errors(params, x2, ref, model, kind)
+        print(f"{DET_PATH} with the fault {kind}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in fe.items()))
+        if not fe[metric] > DET_TOLS[metric]:
+            raise AssertionError(f"the {metric} check misses the fault "
+                                 f"{kind}")
+
+    for path, preset in ((DET_PATH, DET_PRESET), (MASK_PATH, MASK_PRESET),
+                         (MASK_PATH, MASK_PRESET), (DET_PATH, DET_PRESET)):
+        throughput(lambda xb, preset=preset: two_stage_detections(
+            params, xb, preset), batches, path, smi,
+            consume=lambda out: out[1].sum(), batch=DET_BATCH, desc=desc)
+    return rows, launches, per_forward
+
+
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -666,6 +1039,8 @@ def kernels_line(rows, launches, per_forward):
         "deit_tail": ("deit_token_tail",
                       "mrla_tpu_torch/csrc/deit_token_tail.cu",
                       "mrla_tpu/kernels/deit_token_tail.py:227", DEIT_PATH),
+        "roi_align": ("roi_align_patch", "mrla_tpu_torch/csrc/roi_align.cu",
+                      "mrla_tpu/kernels/roialign_patch.py:306", DET_PATH),
     }
     out = []
     for key, (name, source, replaces, path) in meta.items():
@@ -674,6 +1049,7 @@ def kernels_line(rows, launches, per_forward):
         weighted = lambda f: sum(r[f] * r["per_forward"] for r in shapes)
         # what bounds the shape that holds most of the forward's bound
         by = max(shapes, key=lambda r: r["bound_ms"] * r["per_forward"])
+        lib = [r.get("library_ms") for r in shapes]
         out.append({
             "name": name,
             "route": "cuda",
@@ -690,7 +1066,8 @@ def kernels_line(rows, launches, per_forward):
             "plain_ms": weighted("plain_ms"),
             "bound_ms": weighted("bound_ms"),
             "bound_by": by["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes it
+            # a PyTorch call computing the same function, where there is one
+            "library_ms": (None if None in lib else weighted("library_ms")),
             "per_shape": shapes,
         })
     return {"kernels": out}
@@ -723,6 +1100,9 @@ def main() -> int:
     rows = check_kernels(lib)
     launches, per_forward = serve(smi)
     launches[DEIT_PATH], per_forward[DEIT_PATH] = serve_deit(smi)
+    rows["roi_align"], det_launches, det_per_forward = serve_detect(smi)
+    launches.update(det_launches)
+    per_forward.update(det_per_forward)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

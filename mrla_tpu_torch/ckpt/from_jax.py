@@ -46,6 +46,25 @@ variants:
 
 ``tail_params_from_jax`` pulls one block's tail out of its Flax subtree in
 the form ``pack_tail_params`` takes.
+
+``detector_state_dict_from_jax`` is the exact inverse of the JAX package's
+``convert_mmdet_two_stage``: a Flax ``FasterRCNN`` / ``MaskRCNN`` tree ->
+the mmdet-keyed ``state_dict`` the port's detectors load:
+
+    params/backbone, batch_stats/backbone    -> backbone.*  (as above, no fc)
+    params/neck/lateral{i}, fpn_conv{i}      -> neck.lateral_convs.{i}.conv.*,
+                                                neck.fpn_convs.{i}.conv.*
+    params/neck/extra_conv{i}                -> neck.fpn_convs.{i}.conv.*
+    params/rpn_head/rpn_{conv,cls,reg}       -> rpn_head.rpn_{conv,cls,reg}.*
+    params/bbox_head/shared_fc0 [49*C, O]    -> roi_head.bbox_head.shared_fcs.0
+                                                [O, C*49] ([7,7,C] rows
+                                                re-indexed to mmdet's [C,7,7])
+    params/bbox_head/shared_fc1, fc_cls, fc_reg -> shared_fcs.1, fc_cls, fc_reg
+    params/mask_head/conv{i}                 -> roi_head.mask_head.convs.{i}
+                                                .conv.*
+    params/mask_head/upsample [kh,kw,I,O]    -> roi_head.mask_head.upsample
+                                                [I,O,kh,kw], taps rot180
+    params/mask_head/conv_logits             -> roi_head.mask_head.conv_logits
 """
 
 from __future__ import annotations
@@ -111,8 +130,62 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{pre}.mrla.lambda_t"] = _t(p["mrla"]["lambda_t"]).reshape(-1, 1, 1)
         bn(f"{pre}.bn_mrla", p["bn_mrla"], s["bn_mrla"])
 
-    sd["fc.weight"] = _t(np.asarray(params["head"]["fc"]["kernel"]).T)
-    sd["fc.bias"] = _t(params["head"]["fc"]["bias"])
+    if "head" in params:  # a features_only backbone has none
+        sd["fc.weight"] = _t(np.asarray(params["head"]["fc"]["kernel"]).T)
+        sd["fc.bias"] = _t(params["head"]["fc"]["bias"])
+    return sd
+
+
+def _conv(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _oihw(p["kernel"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def detector_state_dict_from_jax(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a Flax ``FasterRCNN`` /
+    ``MaskRCNN`` / ``MRLABackboneFPN`` (numpy or array leaves) -> the
+    mmdet-keyed state_dict (the inverse of ``convert_mmdet_two_stage``)."""
+    params = variables["params"]
+    sd = {f"backbone.{k}": v for k, v in state_dict_from_jax(
+        {"params": params["backbone"],
+         "batch_stats": variables["batch_stats"]["backbone"]}).items()}
+    for name, p in params["neck"].items():
+        if name.startswith("lateral"):
+            _conv(sd, f"neck.lateral_convs.{int(name[7:])}.conv", p)
+        elif name.startswith("fpn_conv"):
+            _conv(sd, f"neck.fpn_convs.{int(name[8:])}.conv", p)
+        elif name.startswith("extra_conv"):
+            _conv(sd, f"neck.fpn_convs.{int(name[10:])}.conv", p)
+        else:
+            raise ValueError(f"unrecognized neck module: {name}")
+    for name, p in params.get("rpn_head", {}).items():
+        _conv(sd, f"rpn_head.{name}", p)
+    if "bbox_head" in params:
+        pre = "roi_head.bbox_head"
+        for name, p in params["bbox_head"].items():
+            key = (f"{pre}.shared_fcs.{int(name[9:])}"
+                   if name.startswith("shared_fc") else f"{pre}.{name}")
+            k = np.asarray(p["kernel"])
+            if name == "shared_fc0":  # rows [7, 7, C] -> columns [C, 7, 7]
+                k = k.reshape(7, 7, -1, k.shape[-1]).transpose(3, 2, 0, 1)
+                sd[f"{key}.weight"] = _t(k.reshape(k.shape[0], -1))
+            else:
+                sd[f"{key}.weight"] = _t(k.T)
+            sd[f"{key}.bias"] = _t(p["bias"])
+    if "mask_head" in params:
+        pre = "roi_head.mask_head"
+        for name, p in params["mask_head"].items():
+            if name.startswith("conv") and name[4:].isdigit():
+                _conv(sd, f"{pre}.convs.{int(name[4:])}.conv", p)
+            elif name == "upsample":  # flax correlates: taps rot180
+                k = np.asarray(p["kernel"])[::-1, ::-1]
+                sd[f"{pre}.upsample.weight"] = _t(k.transpose(2, 3, 0, 1))
+                sd[f"{pre}.upsample.bias"] = _t(p["bias"])
+            elif name == "conv_logits":
+                _conv(sd, f"{pre}.conv_logits", p)
+            else:
+                raise ValueError(f"unrecognized mask_head module: {name}")
     return sd
 
 

@@ -41,6 +41,14 @@ constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N
 constexpr int kBM = 64;        // pixels per CTA
 constexpr int kKC = 64;        // K chunk of W1 staged in shared memory
 constexpr int kPad = 8;        // bf16 row padding (conflict-free fragments)
+constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
+
+// Shared memory of one block: the y tile and one K chunk of W1.  The
+// wrapper's megatail_covers (kernels/mrla_megatail.py) states the same.
+size_t smem_bytes(int C, int C1) {
+  return sizeof(__nv_bfloat16) *
+         ((size_t)kBM * (C + kPad) + (size_t)C1 * (kKC + kPad));
+}
 
 __device__ __forceinline__ void mma_16816(float d[4], uint32_t a0,
                                           uint32_t a1, uint32_t a2,
@@ -166,8 +174,7 @@ cudaError_t allow_smem(size_t smem) {
 template <int NT>
 cudaError_t launch(const TailArgs& a, const void* w1, const void* b1,
                    void* y, void* x1, int64_t P, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)kBM * (a.C + kPad) + (size_t)16 * NT * (kKC + kPad));
+  const size_t smem = smem_bytes(a.C, 16 * NT);
   cudaError_t err = allow_smem<NT>(smem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (P + kBM - 1) / kBM;
@@ -182,14 +189,17 @@ cudaError_t launch(const TailArgs& a, const void* w1, const void* b1,
 
 }  // namespace
 
-// C % 64 == 0 and C1 in {64, 128, 256}, else cudaErrorInvalidValue.
+// C % 64 == 0, C1 in {64, 128, 256} and smem_bytes(C, C1) <= kMaxSmem (so
+// C up to 1472 at C1 = 256), else cudaErrorInvalidValue; the engine routes
+// by the same three conditions (megatail_covers).
 extern "C" int mrla_megatail_bf16(const void* out, const void* id,
                                   const void* gate, const void* wv,
                                   const void* lam, const void* scale,
                                   const void* bias, const void* w1,
                                   const void* b1, void* y, void* x1, int B,
                                   int H, int W, int C, int C1, void* stream) {
-  if (C % kKC) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C % kKC || smem_bytes(C, C1) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   TailArgs a{static_cast<const __nv_bfloat16*>(out),
              static_cast<const __nv_bfloat16*>(id),
              static_cast<const float*>(gate),

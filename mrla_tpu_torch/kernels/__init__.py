@@ -17,8 +17,13 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
     mrla_light_gate,
 )
 from mrla_tpu_torch.kernels.mrla_megatail import (
+    megatail_covers,
     mrla_block_tail_fused_next,
     mrla_block_tail_fused_next_reference,
+)
+from mrla_tpu_torch.kernels.roialign_patch import (
+    roi_align_kernel,
+    roi_align_patch,
 )
 from mrla_tpu_torch.kernels.mrla_stage4 import (
     pack_stage4_params,
@@ -32,6 +37,7 @@ __all__ = [
     "deit_token_tail_reference",
     "fused_epilogue",
     "fused_epilogue_reference",
+    "megatail_covers",
     "mrla_block_tail_fused_next",
     "mrla_block_tail_fused_next_reference",
     "mrla_light_epilogue",
@@ -39,6 +45,8 @@ __all__ = [
     "mrla_light_gate",
     "pack_stage4_params",
     "pack_tail_params",
+    "roi_align_kernel",
+    "roi_align_patch",
     "stage4_resident",
     "stage4_resident_reference",
 ]

@@ -12,8 +12,10 @@ comes from ``mrla_light_gate``; layouts as in ``kernels/mrla_epilogue.py``.
 
 ``mrla_block_tail_fused_next`` launches the kernel for CUDA tensors (bf16)
 and runs the plain version only for CPU tensors; any other input raises.
-The kernel takes C % 64 == 0 and C1 in {64, 128, 256}; its C entry point
-returns cudaErrorInvalidValue (1) for anything else, and the wrapper raises.
+The kernel takes C % 64 == 0, C1 in {64, 128, 256} and a tile that fits a
+block's shared memory (``megatail_covers`` states all three; the engine
+routes by it); its C entry point makes the same three checks, returns
+cudaErrorInvalidValue (1) for anything else, and the wrapper raises.
 ``mrla_block_tail_fused_next.counter`` counts calls and launches, the
 launches also by (B, H, W, C, C1).
 """
@@ -29,6 +31,25 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
     fused_epilogue_reference,
     use_plain_version,
 )
+
+MEGATAIL_C1 = (64, 128, 256)
+MAX_SMEM_BYTES = 232448  # a block's dynamic shared memory on sm_90
+
+
+def megatail_smem_bytes(c: int, c1: int) -> int:
+    """Shared memory of one block: the bf16 y tile [64, C + 8] and a K chunk
+    of W1 [C1, 64 + 8] (``csrc/mrla_megatail.cu``)."""
+    return 2 * (64 * (c + 8) + c1 * 72)
+
+
+def megatail_covers(c: int, c1: int) -> bool:
+    """True where the kernel takes a map of C channels and a next conv1 of
+    C1 outputs, as its C entry point decides: C % 64 == 0, C1 in
+    {64, 128, 256} and the block's shared memory within 227 KB (so C up to
+    1472 at C1 = 256; not stage 4's 2048)."""
+    return (c % 64 == 0 and c1 in MEGATAIL_C1
+            and megatail_smem_bytes(c, c1) <= MAX_SMEM_BYTES)
+
 
 def _w1_matrix(w1_next: torch.Tensor, c: int) -> torch.Tensor:
     c1 = w1_next.shape[0] if w1_next.dim() else 0

@@ -9,7 +9,10 @@ The module tree and ``state_dict`` keys are the reference implementation's
 ``layer{s}.{b}.bn_mrla``, ``fc``), so published checkpoints load as they are.
 
 ``forward`` takes NHWC images and returns fp32 logits; inside, the network
-runs on NCHW views of NHWC memory (channels_last strides).
+runs on NCHW views of NHWC memory (channels_last strides).  With
+``features_only=True`` the model has no ``fc`` and returns the per-stage
+maps (C2, C3, C4, C5) as NHWC views instead: the MMDetection backbone
+contract (eval only; the port has no DropPath, which that variant omits).
 """
 
 from __future__ import annotations
@@ -71,9 +74,11 @@ class ResNetMRLALight(nn.Module):
 
     def __init__(self, layers: Sequence[int], num_classes: int = 1000,
                  dim_perhead: int = 32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 features_only: bool = False):
         super().__init__()
         self.layers = tuple(layers)
+        self.features_only = features_only
         self.conv1, self.bn1 = stem7x7(64, generator)
         inplanes, planes = 64, 64
         for stage_idx, blocks in enumerate(layers):
@@ -89,15 +94,21 @@ class ResNetMRLALight(nn.Module):
                 inplanes = planes * MRLABottleneck.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*stage))
             planes *= 2
-        self.fc = classifier_fc(inplanes, num_classes, generator)
+        if not features_only:
+            self.fc = classifier_fc(inplanes, num_classes, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> logits [B, num_classes] fp32."""
+    def forward(self, x: torch.Tensor):
+        """[B, H, W, 3] -> logits [B, num_classes] fp32, or with
+        ``features_only`` the tuple of per-stage NHWC maps."""
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
+        outs = []
         for stage_idx in range(len(self.layers)):
             x = getattr(self, f"layer{stage_idx + 1}")(x)
+            outs.append(x.permute(0, 2, 3, 1))
+        if self.features_only:
+            return tuple(outs)
         return self.fc(x.mean(dim=(2, 3))).float()
 
 

@@ -53,6 +53,16 @@ def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b=None,
+                stride: int = 1) -> torch.Tensor:
+    """NHWC conv with a torch-layout weight [O, I, kh, kw] and symmetric
+    padding kh // 2 on each side; returns NHWC (a view of channels_last
+    memory)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride,
+                 padding=w.shape[-1] // 2)
+    return y.permute(0, 2, 3, 1)
+
+
 def max_pool_same_torch(x: torch.Tensor, window: int = 3,
                         stride: int = 2) -> torch.Tensor:
     """``MaxPool2d(window, stride, padding=(window-1)//2)`` on NHWC."""

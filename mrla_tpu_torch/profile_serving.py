@@ -3,6 +3,7 @@
 
     python3 -m mrla_tpu_torch.profile_serving [--use-stage4]
     python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlal_small_patch16_224
+    python3 -m mrla_tpu_torch.profile_serving --preset faster_rcnn_r50mrlal_fpn_1x_coco
 
 Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine; a
 ``deit_*`` / ``deit_mrlal_*`` arch through the DeiT engine) at 224 px in
@@ -15,6 +16,17 @@ stage-kernel route.  For resnet50_mrlal it then reads the device time of
 the last stage alone on both routes (a trace of the engine's block loop on
 the stage-3 output map); for a ``deit_mrlal_*`` arch, the device time of
 each pass of the token-tail kernel alone at the three published widths.
+
+With ``--preset`` (a two-stage detection preset) it serves
+``two_stage_detections`` at 800 x 1344, batch 8, bf16 from a seeded
+detector (``testing.detector_serving_model``), traces ``FORWARDS``
+forwards the same way, and then each stage of the served path alone, as
+``two_stage_detections``' ``stage`` hook records them (backbone, FPN, RPN
+head, proposals, RoIAlign, box head, decode and class-wise NMS; the mask
+RoIAlign and mask head for a mask preset), ``STAGE_RUNS`` times
+on the intermediates of one forward: its device time, its launches and its
+wall time per run (the host clock around runs that end in a synchronize),
+so that stages the host holds up show as wall time above device time.
 Needs a CUDA card.
 """
 
@@ -56,6 +68,22 @@ DEIT_GROUPS = (
     ("other elementwise (residual adds, pos)",
      ("elementwise", "vectorized", "unrolled")),
 )
+
+
+DETECT_GROUPS = (
+    ("roi_align kernel", ("roi_align_kernel",)),
+    ("mrla mega-tail kernel", ("mrla_megatail_kernel",)),
+    ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
+    ("sort (top-k)", ("sort", "radix")),
+    ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn",
+                     "nhwc")),
+    ("matrix products (box head, NMS products)",
+     ("gemm", "nvjet", "cublas", "gemv", "xmma", "sm90_")),
+    ("reduction", ("reduce",)),
+    ("index / gather / scatter", ("index", "gather", "scatter")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy")),
+)
+DET_HW, DET_BATCH = (800, 1344), 8
 
 
 def group_of(name: str, groups=GROUPS) -> str:
@@ -129,12 +157,35 @@ def tail_alone(c: int) -> dict:
             if "deit_tail_" in name}
 
 
+def stage_times(fn) -> tuple[float, float, float]:
+    """(device ms, launches, wall ms) per run of ``fn`` alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STAGE_RUNS):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / STAGE_RUNS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STAGE_RUNS):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = device_ms(prof)
+    return (sum(t for t, _ in per_kernel.values()) / STAGE_RUNS,
+            sum(n for _, n in per_kernel.values()) / STAGE_RUNS, wall)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--arch", default="resnet50_mrlal",
                         help="resnet50_mrlal or a deit_* / deit_mrlal_* arch")
     parser.add_argument("--use-stage4", action="store_true",
                         help="trace resnet50_mrlal's stage-kernel route")
+    parser.add_argument("--preset", default=None,
+                        help="a two-stage detection preset: trace "
+                             "two_stage_detections at 800 x 1344, bs8")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -155,7 +206,19 @@ def main() -> int:
     )
 
     deit = args.arch.startswith("deit")
-    if deit:
+    batch = BATCH
+    if args.preset:
+        from mrla_tpu_torch.serving import (
+            prepare_detect_params,
+            two_stage_detections,
+        )
+        from mrla_tpu_torch.testing import detector_serving_model
+
+        params = prepare_detect_params(
+            detector_serving_model(0, args.preset), device="cuda")
+        forward = lambda xb: two_stage_detections(params, xb, args.preset)
+        route, batch = f", {DET_HW[0]}x{DET_HW[1]}", DET_BATCH
+    elif deit:
         params = prepare_deit_inference_params(
             deit_serving_model(args.arch, 0), device="cuda")
         forward = lambda xb: deit_forward(params, xb)
@@ -168,9 +231,10 @@ def main() -> int:
         route = f", use_stage4={args.use_stage4}"
     else:
         parser.error(f"no serving profile for --arch {args.arch}")
-    groups_of_arch = DEIT_GROUPS if deit else GROUPS
+    groups_of_arch = (DETECT_GROUPS if args.preset
+                      else DEIT_GROUPS if deit else GROUPS)
     gen = torch.Generator().manual_seed(1)
-    batches = [images(gen, BATCH).cuda()
+    batches = [images(gen, batch, DET_HW if args.preset else 224).cuda()
                for _ in range(FORWARDS)]
     for xb in batches:  # warm-up: build, autotune, allocator
         forward(xb)
@@ -191,7 +255,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"window: {args.arch}, {FORWARDS} forwards, bs{BATCH}{route}, "
+    print(f"window: {args.preset or args.arch}, {FORWARDS} forwards, "
+          f"bs{batch}{route}, "
           f"wall {wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/forward), "
           f"device busy {busy:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
@@ -213,6 +278,22 @@ def main() -> int:
     for name, (t, n) in top:
         print(f"  {t / FORWARDS:9.4f} {n / FORWARDS:6.1f}  "
               f"{name[:110]}")
+    if args.preset:
+        stages = []  # (name, fn) of each stage of one served forward
+
+        def record(name, fn, *a, **kw):
+            stages.append((name, lambda: fn(*a, **kw)))
+            return fn(*a, **kw)
+
+        print(f"each stage alone, {STAGE_RUNS} runs on the intermediates of "
+              f"one forward (device ms, launches, wall ms per run):")
+        with torch.inference_mode():
+            two_stage_detections(params, batches[0], args.preset,
+                                 stage=record)
+            for name, fn in stages:
+                dev_ms, n, wall = stage_times(fn)
+                print(f"  {name:34s} {dev_ms:9.4f} {n:7.1f} {wall:9.3f}")
+        return 0
     if deit:
         if params["dim_mrla"] is not None:
             print(f"token tail alone, bs{BATCH} (device us per launch of "

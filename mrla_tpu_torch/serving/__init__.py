@@ -2,11 +2,18 @@ from mrla_tpu_torch.serving.deit import (
     deit_forward,
     prepare_deit_inference_params,
 )
+from mrla_tpu_torch.serving.detect import (
+    detect_forward,
+    prepare_detect_params,
+    two_stage_detections,
+)
 from mrla_tpu_torch.serving.resnet_mrlal import (
     attach_stage4,
     prepare_inference_params,
     resnet_mrlal_forward,
 )
 
-__all__ = ["attach_stage4", "deit_forward", "prepare_deit_inference_params",
-           "prepare_inference_params", "resnet_mrlal_forward"]
+__all__ = ["attach_stage4", "deit_forward", "detect_forward",
+           "prepare_deit_inference_params", "prepare_detect_params",
+           "prepare_inference_params", "resnet_mrlal_forward",
+           "two_stage_detections"]

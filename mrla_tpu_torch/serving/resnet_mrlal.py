@@ -10,11 +10,14 @@ serving:
     fp32; the fc weight is kept in the serving dtype and cast to fp32 for
     the fp32 head;
   * every block's MRLA tail runs in a hand-written CUDA kernel.  A block
-    whose output map is at least ``MEGATAIL_MIN_W`` wide and which has a
-    next block goes through the mega-tail (``kernels/mrla_megatail.py``),
-    which also computes the next block's conv1; the next block then starts
-    from that activation, across a stage boundary too.  Every other block
-    goes through the epilogue kernel (``kernels/mrla_epilogue.py``);
+    whose output map is at least ``MEGATAIL_MIN_W`` wide, which has a next
+    block, and whose (C, next C1) the mega-tail covers (``megatail_covers``:
+    not stage 4's C = 2048, nor a next conv1 of 512) goes through the
+    mega-tail (``kernels/mrla_megatail.py``), which also computes the next
+    block's conv1; the next block then starts from that activation, across
+    a stage boundary too.  Every other block goes through the epilogue
+    kernel (``kernels/mrla_epilogue.py``), and the next conv1 stays a
+    convolution;
   * with ``use_stage4=True`` and params from :func:`attach_stage4`, a final
     stage of three blocks on a 7x7 map runs from ``layer4_0``'s conv2 to the
     stage output in the stage kernel (``kernels/mrla_stage4.py``).  Any
@@ -40,11 +43,15 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
     mrla_light_epilogue,
     mrla_light_gate,
 )
-from mrla_tpu_torch.kernels.mrla_megatail import mrla_block_tail_fused_next
+from mrla_tpu_torch.kernels.mrla_megatail import (
+    megatail_covers,
+    mrla_block_tail_fused_next,
+)
 from mrla_tpu_torch.kernels.mrla_stage4 import (
     pack_stage4_params,
     stage4_resident,
 )
+from mrla_tpu_torch.ops.common import conv2d_nhwc as _conv
 from mrla_tpu_torch.ops.common import max_pool_same_torch
 
 BN_EPS = 1e-5
@@ -156,14 +163,6 @@ def attach_stage4(serving_params: Dict,
     return serving_params
 
 
-def _conv(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
-          stride: int = 1) -> torch.Tensor:
-    """NHWC conv with torch-style symmetric padding (k // 2 on each side)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), k, b, stride=stride,
-                 padding=k.shape[-1] // 2)
-    return y.permute(0, 2, 3, 1)
-
-
 def _block(x, p, stride: int, heads: int, x1_pre=None, p_next=None):
     """One serving block.  ``x1_pre``, if given, is relu(conv1(x)) computed
     by the previous block's mega-tail.  Returns (y, x1_next), where x1_next
@@ -176,7 +175,8 @@ def _block(x, p, stride: int, heads: int, x1_pre=None, p_next=None):
     # relu(z + id), in place on the fresh conv output.  One rounding of the
     # sum to the activation dtype, as relu(z.float() + id.float()).to(dtype).
     out = z.add_(identity).relu_()
-    if out.shape[2] >= MEGATAIL_MIN_W and p_next is not None:
+    if (out.shape[2] >= MEGATAIL_MIN_W and p_next is not None
+            and megatail_covers(out.shape[3], p_next["k1"].shape[0])):
         gate = mrla_light_gate(out, p["wq"], p["wk"], heads)
         return mrla_block_tail_fused_next(
             out, identity, gate, p["wv"], p["lam"], p["bn_scale"],

@@ -13,6 +13,12 @@ contrast and colour cast.
 ``deit_serving_model``: a DeiT's LayerNorms need no calibration, but its
 weights are redrawn wider than the init's (``spread_deit_weights``), so that
 the logits show what every part of the trunk computed.
+
+``detector_serving_model`` (the two-stage presets): ``serving_model``'s
+trunk, and RPN and box-head weights fitted to their measured inputs
+(``spread_detector_weights``), so that objectness and class scores differ
+between anchors, rois and classes and every image keeps detections over
+the 0.05 threshold.
 """
 
 from __future__ import annotations
@@ -25,13 +31,15 @@ from mrla_tpu_torch.models import create_model
 from mrla_tpu_torch.serving.resnet_mrlal import _conv
 
 
-def images(gen: torch.Generator, n: int, px: int = 224) -> torch.Tensor:
-    """n seeded NHWC fp32 images on the CPU: smooth random colour fields
-    plus pixel noise, each with its own contrast and colour cast, so that
-    images differ after the global pool as real ones do."""
+def images(gen: torch.Generator, n: int, px=224) -> torch.Tensor:
+    """n seeded NHWC fp32 images on the CPU, ``px`` square or (H, W):
+    smooth random colour fields plus pixel noise, each with its own contrast
+    and colour cast, so that images differ after the global pool as real
+    ones do."""
+    h, w = (px, px) if isinstance(px, int) else px
     lo = torch.randn(n, 3, 7, 7, generator=gen)
-    x = F.interpolate(lo, size=px, mode="bilinear", align_corners=False)
-    x = x + 0.3 * torch.randn(n, 3, px, px, generator=gen)
+    x = F.interpolate(lo, size=(h, w), mode="bilinear", align_corners=False)
+    x = x + 0.3 * torch.randn(n, 3, h, w, generator=gen)
     x = x * (0.5 + 2.5 * torch.rand(n, 1, 1, 1, generator=gen))
     x = x + torch.randn(n, 3, 1, 1, generator=gen)
     return x.permute(0, 2, 3, 1).contiguous()
@@ -164,3 +172,90 @@ def deit_tail_case(gen: torch.Generator, b: int, n: int = 197, c: int = 384,
     ])
     taps = torch.rand(2, ktap, generator=gen, device=dev) * 2 - 1
     return tokens(), tokens(), TailParams(vec.contiguous(), taps)
+
+
+def spread_detector_weights(model: torch.nn.Module, gen: torch.Generator,
+                            px=(256, 384)) -> torch.nn.Module:
+    """Redraw a ``FasterRCNN`` / ``MaskRCNN``'s RPN and box-head weights in
+    place, so that its outputs depend on the image as a trained detector's
+    do.
+
+    At the mmdet init the RPN's convs are N(0, 0.01) (every anchor scores
+    0.5 +- 0.001, so the proposals are an accident of rounding) and
+    ``fc_cls`` is N(0, 0.01) (every class scores about 1/81, under the 0.05
+    threshold, so no image keeps a detection).  Here each redrawn layer is
+    fitted to its input as measured on 2 seeded ``px`` images through the
+    model on the CPU (fp32): ``rpn_conv`` keeps its input's scale (He), and
+    ``rpn_cls`` / ``rpn_reg`` / ``fc_cls`` / ``fc_reg`` are drawn from
+    N(0, gain / (sqrt(fan_in) * rms)), where rms is that of their input less
+    its mean over positions or rois, with a bias that cancels the mean
+    input's share.  Gains: objectness logits of std 2, RPN deltas 0.2, class
+    logits 3 (the top class of a roi takes some 0.15 of the softmax, over
+    the 0.05 threshold), box deltas 1 (0.1 to 0.2 after the target stds).
+    The mask head keeps its init."""
+    rpn = model.rpn_head
+    head = model.roi_head.bbox_head
+    seen = {}
+
+    def fit(layer, inputs, gain):
+        """inputs [N, fan_in]: the layer's input vectors."""
+        mean = inputs.mean(0)
+        rms = (inputs - mean).pow(2).mean().sqrt().item()
+        w = layer.weight
+        with torch.no_grad():
+            w.normal_(0.0, gain / (w[0].numel() ** 0.5 * rms), generator=gen)
+            w2 = w.reshape(w.shape[0], -1)
+            if w2.shape[1] == mean.numel():
+                layer.bias.copy_(-(w2 @ mean))
+            else:  # a 3x3 conv: the centre of a constant map
+                layer.bias.copy_(-(w.sum((2, 3)) @ mean))
+
+    def grab(name):
+        def hook(_, args):
+            seen[name] = args[0].detach().float().reshape(
+                -1, args[0].shape[-1])
+        return hook
+
+    x = images(gen, 2, px)
+    with torch.no_grad():
+        feats = model.extract_feats(x.to(model.dtype))
+        pixels = torch.cat([f.reshape(-1, f.shape[-1]) for f in feats])
+        fit(rpn.rpn_conv, pixels, 2.0 ** 0.5)
+        t = torch.cat([rpn.rpn_conv(f.permute(0, 3, 1, 2)).relu()
+                       .permute(0, 2, 3, 1).reshape(-1, f.shape[-1])
+                       for f in feats])
+        fit(rpn.rpn_cls, t, 2.0)
+        fit(rpn.rpn_reg, t, 0.2)
+        handle = head.fc_cls.register_forward_pre_hook(grab("fc"))
+        model(x)
+        handle.remove()
+        fit(head.fc_cls, seen["fc"], 3.0)
+        fit(head.fc_reg, seen["fc"], 1.0)
+    return model
+
+
+def detector_serving_model(seed: int, preset: str =
+                           "faster_rcnn_r50mrlal_fpn_1x_coco",
+                           num_classes: int = 80) -> torch.nn.Module:
+    """A two-stage preset's detector on the CPU from ``seed``, in eval
+    mode: the backbone is :func:`serving_model`'s resnet50_mrlal (bn3 scale
+    U(0.1, 0.5), BN statistics from seeded images), the neck and heads are
+    drawn from the same seed and the heads spread by
+    :func:`spread_detector_weights`."""
+    from mrla_tpu_torch.detect.configs import PRESETS
+    from mrla_tpu_torch.detect.two_stage import FasterRCNN, MaskRCNN
+
+    p = PRESETS[preset]
+    if tuple(p.backbone_layers) != (3, 4, 6, 3):
+        raise ValueError(f"{preset}: only resnet50_mrlal trunks are seeded")
+    gen = torch.Generator().manual_seed(seed)
+    cls = MaskRCNN if p.with_mask else FasterRCNN
+    model = cls(layers=p.backbone_layers, num_classes=num_classes,
+                roi_sampling_ratio=0, generator=gen)
+    trunk = {k: v for k, v in serving_model(seed).state_dict().items()
+             if not k.startswith("fc.")}
+    model.backbone.load_state_dict(trunk, strict=True)
+    # fitted at half the daemon's 800 x 1344 in each axis: at 800 x 1344
+    # the class logits then spread with a std near 3 (fitted at 256 x 384
+    # they reach 5.8 there and the top scores saturate at 1.0)
+    return spread_detector_weights(model.eval(), gen, px=(400, 672))

@@ -262,3 +262,119 @@ def test_deit_serving_routes_through_the_tail_kernel(cuda):
     assert deit_token_tail.counter.by_shape == {(4, 197, 64): 3}
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=0.08, rtol=0.05)
+
+
+# the mega-tail's C entry point takes exactly what megatail_covers states
+@pytest.mark.parametrize("c,c1", [(1024, 256), (1472, 256), (1536, 64),
+                                  (1536, 256), (1024, 512), (2048, 64),
+                                  (2048, 256)])
+def test_megatail_entry_point_agrees_with_megatail_covers(cuda, c, c1):
+    from mrla_tpu_torch.kernels import megatail_covers
+
+    a = _tail(cuda, 1, 2, 3, c)
+    w1 = torch.zeros(c1, c, device="cuda", dtype=torch.bfloat16)
+    b1 = torch.zeros(c1, device="cuda")
+    if megatail_covers(c, c1):
+        mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+    else:
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+    torch.cuda.synchronize()  # no error was left pending on the card
+
+
+def _roi_case(gen, b, p, c, hw=((200, 336), (100, 168), (50, 84), (25, 42)),
+              canvas=(800, 1344), dtype=torch.bfloat16):
+    """A pyramid (the detection path's level sizes by default; the top
+    level 42 wide, no multiple of 8) and realistic rois with the hard
+    cases: off the canvas, zero extent, invalid rows."""
+    feats = [torch.randn(b, h, w, c, generator=gen, device="cuda").to(dtype)
+             for h, w in hw]
+    ch, cw = canvas
+    u = lambda *s: torch.rand(*s, generator=gen, device="cuda")
+    scale = torch.exp(u(b, p) * 4.5 + 2.0)  # 7 .. 665 px
+    ar = torch.exp((u(b, p) - 0.5) * 2.2)
+    w, h = scale * ar.sqrt(), scale / ar.sqrt()
+    cx, cy = u(b, p) * cw, u(b, p) * ch
+    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    rois[..., 0::2] = rois[..., 0::2].clamp(0, cw)
+    rois[..., 1::2] = rois[..., 1::2].clamp(0, ch)
+    rois[:, 0] = torch.tensor([-40.0, -30.0, 60.0, 50.0])
+    rois[:, 1] = 0.0
+    valid = u(b, p) > 0.1
+    valid[:, 1] = False
+    return feats, rois, valid
+
+
+# the detection path's box head (O = 7, adaptive grid) and mask head (O =
+# 14) shapes at a small batch, a static grid, fp32 in / out, and a narrow C
+# on a small pyramid
+@pytest.mark.parametrize("b,p,o,c,sr,dtype", [
+    (2, 300, 7, 256, 0, torch.bfloat16),
+    (2, 50, 14, 256, 0, torch.bfloat16),
+    (1, 64, 7, 256, 2, torch.bfloat16),
+    (1, 64, 7, 256, 0, torch.float32),
+    (3, 17, 7, 8, 0, torch.float32),
+])
+def test_roi_align_kernel_matches_plain(cuda, b, p, o, c, sr, dtype):
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.kernels import roi_align_patch
+
+    feats, rois, valid = _roi_case(cuda, b, p, c, dtype=dtype)
+    roi_align_patch.counter.reset()
+    got = roi_align_patch(feats, rois, valid, out_size=o, sampling_ratio=sr)
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.by_shape == {(b, p, o, c): 1}
+    assert got.shape == (b, p, o, o, c) and got.dtype == dtype
+    geom, smax = roi_geometry(rois, valid, [f.shape[1:3] for f in feats],
+                              (4, 8, 16, 32), o, sr)
+    want = roi_align_reference([f.float() for f in feats], geom, o, smax)
+    assert torch.count_nonzero(got[:, 1]) == 0  # invalid rows are zero
+    if dtype == torch.bfloat16:
+        _assert_ulps(got, want, 1)
+    else:  # fp32 sums of at most 4 * 7 * 7 weighted terms, reassociated
+        tol = 196 * 2.0 ** -24 * max(f.abs().max().item() for f in feats)
+        assert (got - want).abs().max().item() <= tol
+
+
+def test_roi_align_entry_point_rejects(cuda):
+    from mrla_tpu_torch.kernels import roi_align_patch
+
+    feats, rois, valid = _roi_case(cuda, 1, 4, 12,
+                                   hw=((16, 16), (8, 8), (4, 4), (2, 2)),
+                                   canvas=(64, 64))
+    roi_align_patch.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):  # C % 8 != 0
+        roi_align_patch(feats, rois, valid)
+    assert roi_align_patch.counter.launches == 0
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError, match="bfloat16 or"):
+        roi_align_patch([f.half() for f in feats], rois, valid)
+
+
+def test_detection_serving_routes_through_the_kernels(cuda):
+    """A (1, 1, 1, 1) Faster R-CNN at 128 x 160: one RoIAlign launch at
+    (B, proposals, 7, 256), and finite detections on the card."""
+    from mrla_tpu_torch.detect.two_stage import FasterRCNN
+    from mrla_tpu_torch.kernels import roi_align_patch
+    from mrla_tpu_torch.serving import (
+        prepare_detect_params,
+        two_stage_detections,
+    )
+    from mrla_tpu_torch.testing import spread_detector_weights
+
+    gen = torch.Generator().manual_seed(0)
+    model = spread_detector_weights(
+        FasterRCNN(layers=(1, 1, 1, 1), num_classes=5, generator=gen).eval(),
+        gen, px=(128, 160))
+    params = prepare_detect_params(model, (1, 1, 1, 1))
+    x = torch.randn(2, 128, 160, 3, generator=gen).cuda()
+    roi_align_patch.counter.reset()
+    boxes, scores, labels, valid = two_stage_detections(
+        params, x, layers=(1, 1, 1, 1), num_proposals=200, rpn_nms_pre=300)
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.by_shape == {(2, 200, 7, 256): 1}
+    assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+    assert valid.sum(1).min() > 0
