@@ -57,9 +57,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      [C, 7, 7] is wanted, rois with x and y swapped, the level mapping one
      level up, one FPN top-down add left out) fails it; img/s over 20
      forwards of each preset and the peak memory;
-  8. one JSON line listing each ported kernel, its per-forward numbers
-     weighted by the launches counted by shape on its main path;
-  9. the nvidia-smi line, then the result line
+  8. two-stage detection training (fp32, TF32 off): the RoIAlign backward
+     kernel against its plain version on the sampled rois of one 800 x 800,
+     batch 8 step of the mask preset (512 rois at 7 x 7, 128 at 14 x 14)
+     with a seeded cotangent, run twice (the run-to-run difference of its
+     atomics), with its time (the buffers' zero-fill inside), bound and
+     plain time, and the forward kernel at the training shapes; the
+     wrapper's autograd on the card against CPU copies, and a backward that
+     ignores valid, which must fail that check; one full-depth step at 800
+     x 800, batch 2, on the card against the same step on the CPU (loss
+     terms; the R-CNN loss's gradient to P2..P5 on the CPU's sampled rois),
+     with three injected backward faults (x and y swapped, the gradient one
+     level up, the cotangent dropped) that must each fail it; the trainer
+     (detect/train_cli.py main) at 800 x 800, batch 8, 80 classes for the
+     faster preset, the mask preset and the faster preset with --bf16: 2 +
+     8 steps with the counts set to 0 just before and read just after,
+     ms / step, img/s, peak memory, finite losses and the RoIAlign launches
+     per step by shape (forward, backward, gt mask crop; the tables below);
+     a small detector learning the synthetic task (the loss must fall);
+  9. one JSON line listing each ported kernel, its per-forward (per-step
+     for the backward) numbers weighted by the launches counted by shape on
+     its main path;
+ 10. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It needs one CUDA card and exits non-zero without printing a result when
@@ -70,8 +89,11 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -715,51 +737,87 @@ def check_faults(params, x, ref, use_stage4: bool):
         raise AssertionError(f"the logit check misses the faults {missed}")
 
 
-def roi_work(feats, geom, out_size: int, smax: int, out_bytes: int):
-    """(bytes, fp32 operations) that one RoIAlign over ``geom`` needs on
-    this data: the pyramid cells the rois' samples touch (the union of
-    their footprints; with the adaptive grid every cell between a roi's
-    first and last sample is touched) read once, the output written once,
-    the geometry read once; 4 corners x (multiply, add) per live sample and
-    channel."""
+def roi_axes(hw, b, geom, out_size: int, smax: int):
+    """Each roi's two axis tables as the kernels build them (cells and
+    weights of every bin and sample slot, detect/roi_align.py:axis_samples),
+    with its level, image and validity."""
     from mrla_tpu_torch.detect.roi_align import axis_samples
 
-    b, c = feats[0].shape[0], feats[0].shape[-1]
     g = geom.reshape(-1, geom.shape[-1])
     p = geom.shape[1]
     lvl = g[:, 7].long()
     img = torch.arange(b, device=g.device).repeat_interleave(p)
-    hs = torch.tensor([f.shape[1] for f in feats], device=g.device)
-    ws = torch.tensor([f.shape[2] for f in feats], device=g.device)
-    ylo, yhi, wylo, wyhi = axis_samples(g[:, 0], g[:, 2], g[:, 4], hs[lvl],
-                                        out_size, smax)
-    xlo, xhi, wxlo, wxhi = axis_samples(g[:, 1], g[:, 3], g[:, 5], ws[lvl],
-                                        out_size, smax)
-    live_y, live_x = (wylo + wyhi) > 0, (wxlo + wxhi) > 0
-    valid = g[:, 6] > 0
-    n_y = live_y.flatten(1).sum(1).double()
-    n_x = live_x.flatten(1).sum(1).double()
-    ops = (valid * n_y * n_x).sum().item() * c * ROI_FP32_OPS
-    keep = valid & (n_y > 0) & (n_x > 0)
-    big = 1 << 30
-    r0 = torch.where(live_y, ylo, big).flatten(1).amin(1)
-    r1 = torch.where(live_y, yhi, -1).flatten(1).amax(1)
-    c0 = torch.where(live_x, xlo, big).flatten(1).amin(1)
-    c1 = torch.where(live_x, xhi, -1).flatten(1).amax(1)
+    hs = torch.tensor([h for h, _ in hw], device=g.device)
+    ws = torch.tensor([w for _, w in hw], device=g.device)
+    ys = axis_samples(g[:, 0], g[:, 2], g[:, 4], hs[lvl], out_size, smax)
+    xs = axis_samples(g[:, 1], g[:, 3], g[:, 5], ws[lvl], out_size, smax)
+    return ys, xs, lvl, img, g[:, 6] > 0
+
+
+def footprint_cells(hw, b, geom, out_size: int, smax: int) -> int:
+    """Pyramid cells the rois' samples touch with a weight: the union over
+    the valid rois of each roi's touched rows x touched columns."""
+    (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi), lvl, img, valid = \
+        roi_axes(hw, b, geom, out_size, smax)
+    rows = torch.cat([torch.where(wylo > 0, ylo, -1),
+                      torch.where(wyhi > 0, yhi, -1)], -1).flatten(1)
+    cols = torch.cat([torch.where(wxlo > 0, xlo, -1),
+                      torch.where(wxhi > 0, xhi, -1)], -1).flatten(1)
     cells = 0
-    for lv, f in enumerate(feats):
-        m = keep & (lvl == lv)
-        h, w = f.shape[1:3]
-        diff = torch.zeros(b, h + 1, w + 1, device=g.device)
-        for rr, cc, sign in ((r0, c0, 1.0), (r0, c1 + 1, -1.0),
-                             (r1 + 1, c0, -1.0), (r1 + 1, c1 + 1, 1.0)):
-            diff.index_put_((img[m], rr[m], cc[m]),
-                            torch.full((int(m.sum()),), sign,
-                                       device=g.device), accumulate=True)
-        cells += int((diff.cumsum(1).cumsum(2)[:, :h, :w] > 0.5).sum())
+    for lv, (h, w) in enumerate(hw):
+        m = valid & (lvl == lv)
+        r, c, i = rows[m][:, :, None], cols[m][:, None, :], img[m]
+        keep = (r >= 0) & (c >= 0)
+        i = i[:, None, None].expand_as(keep)
+        canvas = torch.zeros(b, h, w, dtype=torch.bool, device=geom.device)
+        canvas[i[keep], r.expand_as(keep)[keep], c.expand_as(keep)[keep]] = 1
+        cells += int(canvas.sum())
+    return cells
+
+
+def roi_work(feats, geom, out_size: int, smax: int, out_bytes: int):
+    """(bytes, fp32 operations) that one RoIAlign over ``geom`` needs on
+    this data: the pyramid cells the rois' samples touch read once, the
+    output written once, the geometry read once; 4 corners x (multiply,
+    add) per live sample and channel."""
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    hw = [tuple(f.shape[1:3]) for f in feats]
+    (_, _, wylo, wyhi), (_, _, wxlo, wxhi), _, _, valid = \
+        roi_axes(hw, b, geom, out_size, smax)
+    n_y = ((wylo + wyhi) > 0).flatten(1).sum(1).double()
+    n_x = ((wxlo + wxhi) > 0).flatten(1).sum(1).double()
+    ops = (valid * n_y * n_x).sum().item() * c * ROI_FP32_OPS
+    cells = footprint_cells(hw, b, geom, out_size, smax)
     nbytes = (cells * c * feats[0].element_size()
-              + g.shape[0] * out_size ** 2 * c * out_bytes + g.numel() * 4)
+              + geom.shape[0] * geom.shape[1] * out_size ** 2 * c * out_bytes
+              + geom.numel() * 4)
     return nbytes, ops
+
+
+def grad_work(hw, b, c, geom, out_size: int, smax: int):
+    """(bytes, fp32 operations) that one RoIAlign backward over ``geom``
+    needs on this data: the valid rois' fp32 cotangent read once, the fp32
+    gradient buffers written once, the geometry read once (the kernel's
+    read-backs of its own output for its atomic adds are its cost, not the
+    function's); per valid roi, bin, channel and pair of distinct (y, x)
+    cells of the bin one multiply and one add."""
+    (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi), _, _, valid = \
+        roi_axes(hw, b, geom, out_size, smax)
+
+    def distinct(lo, hi, wlo, whi):  # [R, O]: cells with weight, per bin
+        cells = torch.cat([torch.where(wlo > 0, lo, -1),
+                           torch.where(whi > 0, hi, -1)], -1).sort(-1).values
+        new = torch.ones_like(cells, dtype=torch.bool)
+        new[..., 1:] = cells[..., 1:] != cells[..., :-1]
+        return (new & (cells >= 0)).sum(-1).double()
+
+    n_y = distinct(ylo, yhi, wylo, wyhi).sum(1)
+    n_x = distinct(xlo, xhi, wxlo, wxhi).sum(1)
+    pairs = (valid * n_y * n_x).sum().item()
+    buffers = sum(b * h * w for h, w in hw) * c * 4
+    nbytes = (int(valid.sum()) * out_size ** 2 * c * 4 + buffers
+              + geom.numel() * 4)
+    return nbytes, 2 * pairs * c
 
 
 def library_roi_align_ms(feats, geom, out_size: int, strides):
@@ -1020,6 +1078,440 @@ def serve_detect(smi: str):
     return rows, launches, per_forward
 
 
+# The detection training path: the two-stage presets through the trainer
+# entry point (detect/train_cli.py) at 800 x 800, batch 8, 80 classes, fp32
+# (TF32 off), seeded weights.  Per step the RoIAlign wrapper launches,
+# keyed (B, P, out, C) forward and ("bwd", B, P, out, C) backward: the box
+# head's 512 sampled rois; with masks the mask head's first 128 and the gt
+# mask crop (one level, stride 1, the gt axis as channels, fp32 canvas).
+TRAIN_PATH = "faster_rcnn_r50mrlal training"
+TRAIN_BATCH, TRAIN_PX, TRAIN_MAX_GT = 8, 800, 32
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+TRAIN_ROI = {(TRAIN_BATCH, 512, 7, 256): "box head"}
+TRAIN_MASK_ROI = {(TRAIN_BATCH, 128, 14, 256): "mask head",
+                  (TRAIN_BATCH, 128, 28, TRAIN_MAX_GT): "gt mask crop"}
+# each cell of the backward sums at most a few hundred weighted cotangent
+# terms (fp32 atomics, in no fixed order): 64 fp32 roundings of the sum of
+# its terms' magnitudes, cell by cell (test_torch_gpu.py holds the same)
+GRAD_ROUNDINGS = 64
+# the in-situ step: full depth, 800 x 800, batch 2.  Card against CPU, both
+# fp32: the loss terms relative, the gradient of the R-CNN loss to each of
+# P2..P5 relative to its norm.  The gradient reads about 1e-3 where the loss
+# terms agree to 1e-7: box-head ReLUs whose input lies within fp32 noise of
+# 0 switch between the two, each moving the gradient by its share (the
+# card with the plain backward reads the same, printed beside).  Limits
+# between the sound reading and the least injected fault (both printed by
+# this script; readings in PERF.md).
+INSITU_PX, INSITU_BATCH = 800, 2
+INSITU_TOLS = {"loss": 1e-3, "grad": 0.02}
+# the wrapper's autograd on the card against the CPU: a function linear in
+# the features, so the two differ only by the order of fp32 sums (relative
+# norm about 2e-6); the valid-ignored fault reads near 0.6
+AUTOGRAD_TOL = 1e-4
+# backward faults: x and y swapped, the gradient sent one level up, the
+# cotangent dropped (in situ); valid ignored (the autograd check: in situ
+# the loss gives an unsampled roi a zero cotangent, so it cannot show there)
+GRAD_FAULTS = ("xy", "level", "dropped")
+# the learning check: a small detector on the synthetic squares task
+LEARN_ARGV = ["--preset", DET_PRESET, "--backbone-layers", "1", "1", "1",
+              "1", "--img-size", "128", "--num-classes", "3", "--max-gt",
+              "4", "--batch-size", "8", "--epochs", "2", "--steps-per-epoch",
+              "150", "--eval-steps", "3", "--rpn-proposals", "100",
+              "--rcnn-samples", "64", "--warmup-iters", "100", "--lr",
+              "0.005", "--eval-every", "2"]
+LEARN_WINDOW = 20  # steps averaged at the start and at the end
+# the mean loss of the last LEARN_WINDOW steps over that of the first
+LEARN_RATIO_TOL = 0.6
+
+
+def split_roi_counts(counter, steps: int):
+    """(launches, launches per step by shape) of the RoIAlign counter,
+    apart for the forward ("roi_align") and the backward
+    ("roi_align_bwd")."""
+    fwd = {s: n for s, n in counter.by_shape.items() if s[0] != "bwd"}
+    bwd = {s: n for s, n in counter.by_shape.items() if s[0] == "bwd"}
+    return ({"roi_align": sum(fwd.values()),
+             "roi_align_bwd": sum(bwd.values())},
+            {"roi_align": {s: n / steps for s, n in fwd.items()},
+             "roi_align_bwd": {s: n / steps for s, n in bwd.items()}})
+
+
+def train_argv(preset: str, steps: int, extra=()):
+    """train_cli's arguments for the full-width training path."""
+    return ["--preset", preset, "--img-size", str(TRAIN_PX), "--batch-size",
+            str(TRAIN_BATCH), "--num-classes", "80", "--max-gt",
+            str(TRAIN_MAX_GT), "--epochs", "1", "--steps-per-epoch",
+            str(steps), "--eval-every", "0", "--device", "cuda", *extra]
+
+
+def check_roi_align_grad():
+    """The backward kernel against its plain version on the rois of one
+    full-size training step of the mask preset (taken through the loss's
+    stage hook) with a seeded cotangent, twice (the run-to-run difference
+    of its atomics); its time, bound and the plain version's time; and the
+    forward kernel at the training shapes in fp32."""
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_backward_reference,
+        roi_align_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.detect.two_stage import ROI_STRIDES
+    from mrla_tpu_torch.detect.two_stage_train import faster_rcnn_train_loss
+    from mrla_tpu_torch.kernels.roialign_patch import (
+        roi_align_grad_kernel,
+        roi_align_kernel,
+    )
+
+    args = train_cli.parse_args(train_argv(MASK_PRESET, 1))
+    model = train_cli.build_model(args, torch.device("cuda"))
+    batch = train_cli.to_device(next(train_cli.data_iter(args, True, 0)),
+                                "cuda")
+    seen = {}
+
+    def keep(name, fn, *a, **kw):
+        if "RoIAlign" in name:
+            seen[name] = a
+        return fn(*a, **kw)
+
+    with torch.no_grad():
+        faster_rcnn_train_loss(
+            model, batch["image"], batch["gt_boxes"], batch["gt_labels"],
+            batch["gt_valid"], torch.Generator("cuda").manual_seed(5),
+            gt_masks=batch["gt_masks"], stage=keep)
+    feats = [f.float().contiguous() for f in seen["RoIAlign 7x7"][0][:4]]
+    hw = [tuple(f.shape[1:3]) for f in feats]
+    gen = torch.Generator("cuda").manual_seed(6)
+    rows, cases = {}, {}
+    for name, o in (("RoIAlign 7x7", 7), ("mask RoIAlign 14x14", 14)):
+        rois, valid = seen[name][1], seen[name][2]
+        b, p, c = rois.shape[0], rois.shape[1], feats[0].shape[-1]
+        geom, smax = roi_geometry(rois, valid, hw, ROI_STRIDES, o, 0)
+        cases[name] = (feats, o, smax, geom)
+        ct = torch.randn(b, p, o, o, c, generator=gen, device="cuda")
+        got = roi_align_grad_kernel(ct, geom, hw, smax)
+        again = roi_align_grad_kernel(ct, geom, hw, smax)
+        want = roi_align_backward_reference(ct, geom, hw, o, smax)
+        mags = roi_align_backward_reference(ct.abs(), geom, hw, o, smax)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        rerun = max((g - a).abs().max().item() for g, a in zip(got, again))
+        worst = max(((g - w).abs() / (GRAD_ROUNDINGS * 2.0 ** -24 * m
+                                      + 1e-30)).max().item()
+                    for g, w, m in zip(got, want, mags))
+        ms = cuda_ms(lambda: roi_align_grad_kernel(ct, geom, hw, smax))
+        plain_ms = cuda_ms(lambda: roi_align_backward_reference(
+            ct, geom, hw, o, smax), iters=3, warmup=1)
+        nbytes, ops = grad_work(hw, b, c, geom, o, smax)
+        bound_ms, by = bound(nbytes, 0, ops)
+        g = geom.reshape(-1, geom.shape[-1])
+        live = g[:, 6] > 0
+        levels = torch.bincount(g[live, 7].long(), minlength=4).tolist()
+        rows[("bwd", b, p, o, c)] = dict(
+            shape=f"{TRAIN_PATH} {name}: [{b},{p}] rois, out {o}x{o}, C {c}",
+            max_abs_err=err, rerun_max_abs_diff=rerun, tol_ratio=worst,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=None)
+        print(f"roi_align_bwd {name} [{b},{p},{o},{o},{c}] fp32: valid rois "
+              f"{int(live.sum())}, by level {levels}; max|Δgrad| {err:.3g} "
+              f"(worst cell at {worst:.3g} of its limit, {GRAD_ROUNDINGS} "
+              f"fp32 roundings of the sum of its terms' magnitudes); two "
+              f"runs differ by {rerun:.3g} at max|grad| "
+              f"{max(w.abs().max().item() for w in want):.4g} | kernel "
+              f"{ms:.4f} ms with the "
+              f"zero-fill of the buffers inside the window, bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.3f} GFLOP), plain {plain_ms:.4f} ms, library "
+              f"n/a (no PyTorch call computes it)")
+        if not worst <= 1.0:
+            raise AssertionError(f"roi_align_bwd {name}: a cell beyond its "
+                                 f"limit ({worst:.3g})")
+        del got, again, want, mags, ct
+    cases["gt mask crop"] = crop_case(seen["mask RoIAlign 14x14"], batch)
+    for name, case in cases.items():
+        time_forward(name, *case)
+    return rows
+
+
+def crop_case(mask_inputs, batch):
+    """The gt mask crop's operands: the masks as channels (fp32 canvas, the
+    gt axis padded to a multiple of 8) and the geometry of the mask rois."""
+    from mrla_tpu_torch.detect.roi_align import roi_geometry
+
+    m4 = batch["gt_masks"].permute(0, 2, 3, 1).float().contiguous()
+    geom, smax = roi_geometry(mask_inputs[1], None, [m4.shape[1:3]], (1,),
+                              28, 1, 1e9)
+    return [m4], 28, smax, geom
+
+
+def time_forward(name, feats, o, smax, geom):
+    """The forward kernel at a training shape (fp32): its error against the
+    plain version, time, bound and plain time."""
+    from mrla_tpu_torch.detect.roi_align import roi_align_reference
+    from mrla_tpu_torch.kernels.roialign_patch import roi_align_kernel
+
+    got = roi_align_kernel(feats, geom, o, smax)
+    want = roi_align_reference(feats, geom, o, smax)
+    err = (got - want).abs().max().item()
+    tol = ROI_FP32_TERMS * 2.0 ** -24 * max(f.abs().max().item()
+                                            for f in feats)
+    ms = cuda_ms(lambda: roi_align_kernel(feats, geom, o, smax))
+    plain_ms = cuda_ms(lambda: roi_align_reference(feats, geom, o, smax),
+                       iters=3, warmup=1)
+    nbytes, ops = roi_work(feats, geom, o, smax, 4)
+    bound_ms, by = bound(nbytes, 0, ops)
+    print(f"roi_align fwd, training {name} {list(got.shape)} fp32: "
+          f"max|Δ| {err:.3g} (tol {tol:.3g}) | kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+    if not err <= tol:
+        raise AssertionError(f"roi_align fwd {list(got.shape)}: {err} > "
+                             f"{tol}")
+
+
+def check_roi_align_autograd():
+    """torch.autograd.grad of a seeded function of roi_align_patch on CUDA
+    tensors against the same on CPU copies (the wrapper's autograd on the
+    card: on a wrapper whose CUDA output has no gradient this fails), and
+    the valid-ignored fault of the backward, which must fail it."""
+    import mrla_tpu_torch.kernels.roialign_patch as rp
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    hw = ((100, 168), (50, 84), (25, 42), (13, 21))
+    b, p, c = 2, 200, 256
+    feats = [torch.randn(b, h, w, c, generator=gen, device="cuda")
+             for h, w in hw]
+    u = lambda *s: torch.rand(*s, generator=gen, device="cuda")
+    scale = torch.exp(u(b, p) * 4.0 + 2.0)
+    ar = torch.exp((u(b, p) - 0.5) * 2.2)
+    cx, cy = u(b, p) * 672, u(b, p) * 400
+    w, h = scale * ar.sqrt(), scale / ar.sqrt()
+    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    valid = u(b, p) > 0.2
+    ct = torch.randn(b, p, 7, 7, c, generator=gen, device="cuda")
+
+    def grads(fs, r, v, wt):
+        fs = [f.detach().requires_grad_() for f in fs]
+        out = rp.roi_align_patch(fs, r, v, (4, 8, 16, 32), 7, 0)
+        return torch.autograd.grad((out * wt).sum(), fs)
+
+    want = grads([f.cpu() for f in feats], rois.cpu(), valid.cpu(), ct.cpu())
+
+    def err(got):
+        return max(((g.cpu() - w).norm() / w.norm()).item()
+                   for g, w in zip(got, want))
+
+    rp.roi_align_patch.counter.reset()
+    sound = err(grads(feats, rois, valid, ct))
+    launched = dict(rp.roi_align_patch.counter.by_shape)
+    real = rp.roi_align_grad_kernel
+
+    def valid_ignored(g, geom, *a):
+        geom = geom.clone()
+        geom[..., 6] = 1.0
+        return real(g, geom, *a)
+
+    rp.roi_align_grad_kernel = valid_ignored
+    try:
+        fault = err(grads(feats, rois, valid, ct))
+    finally:
+        rp.roi_align_grad_kernel = real
+    tol = AUTOGRAD_TOL
+    print(f"roi_align_patch autograd on the card against the CPU (2 x 200 "
+          f"rois, 7x7, C 256, seeded cotangent): gradient error {sound:.3g} "
+          f"(tol {tol}), launches {launched}; with valid ignored in the "
+          f"backward {fault:.3g}")
+    if not (sound <= tol and launched.get(("bwd", b, p, 7, c)) == 1):
+        raise AssertionError("roi_align_patch autograd on the card")
+    if not fault > tol:
+        raise AssertionError("the autograd check misses the valid fault")
+
+
+def insitu_errors(model, batch, rand, ref, targets):
+    """One training step of the card's model against the CPU's (``ref``:
+    its loss terms and gradients to P2..P5) on the CPU's sampled rois."""
+    from mrla_tpu_torch.testing import rcnn_pyramid_grads
+
+    losses, _, grads = rcnn_pyramid_grads(model, batch, rand, targets)
+    loss = max(abs(losses[k].item() - ref[0][k].item()) / abs(ref[0][k].item())
+               for k in ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
+                         "loss_bbox"))
+    # per level relative to its norm; a level no roi reaches (zero on the
+    # CPU) relative to the norm of the whole gradient
+    whole = torch.cat([w.flatten() for w in ref[2]]).norm()
+    grad = max(((g.cpu() - w).norm() / (w.norm() if w.norm() > 0 else whole))
+               .item() for g, w in zip(grads, ref[2]))
+    return {"loss": loss, "grad": grad}
+
+
+def check_insitu():
+    """One full-depth training step on the card against the same step on
+    the CPU (INSITU_PX square, INSITU_BATCH images, the same weights and
+    uniforms, the CPU's sampled rois fed to both), and the three backward
+    faults in situ."""
+    import mrla_tpu_torch.kernels.roialign_patch as rp
+    from mrla_tpu_torch.detect.roi_align import (
+        map_roi_levels,
+        roi_align_backward_reference,
+    )
+    from mrla_tpu_torch.testing import (
+        detection_batch,
+        rcnn_pyramid_grads,
+        train_uniforms,
+        training_detector,
+    )
+
+    t0 = time.perf_counter()
+    model = training_detector(0, num_classes=80, px=(256, 256))
+    batch = detection_batch(2, INSITU_BATCH, INSITU_PX, 80, TRAIN_MAX_GT,
+                            False)
+    side = [-(-INSITU_PX // 4)]  # P2, then each level halves, rounding up
+    for _ in range(4):
+        side.append(-(-side[-1] // 2))
+    n_anchors = 3 * sum(h * h for h in side)
+    rand = train_uniforms(3, INSITU_BATCH, n_anchors,
+                          TRAIN_MAX_GT + model.num_proposals)
+    ref = rcnn_pyramid_grads(model, batch, rand)
+    targets = ref[1]
+    levels = torch.bincount(map_roi_levels(
+        targets["rois"][targets["roi_valid"]], 4), minlength=4).tolist()
+    print(f"in-situ step: full depth {INSITU_PX}x{INSITU_PX} bs"
+          f"{INSITU_BATCH}, CPU step in {time.perf_counter() - t0:.1f} s; "
+          f"{int(targets['roi_valid'].sum())} sampled rois by level "
+          f"{levels}; gradient norms of P2..P5 "
+          f"{[round(w.norm().item(), 6) for w in ref[2]]}")
+    model = model.to("cuda")
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    own = rcnn_pyramid_grads(model, batch, rand)[1]
+    same = all(torch.equal(own[k].cpu(), targets[k]) for k in
+               ("roi_valid", "labels", "gt_index"))
+    print(f"in-situ step: the card's own sampled rois "
+          f"{'equal' if same else 'differ from'} the CPU's; the CPU's are "
+          f"fed to both")
+    errs = insitu_errors(model, batch, rand, ref, targets)
+    print("in-situ step against the CPU: " + ", ".join(
+        f"{k} {v:.4g} (tol {INSITU_TOLS[k]})" for k, v in errs.items()))
+    if any(not v <= INSITU_TOLS[k] for k, v in errs.items()):
+        raise AssertionError(f"in-situ step beyond tolerance: {errs}")
+    real = rp.roi_align_grad_kernel
+    rp.roi_align_grad_kernel = lambda g, geom, hw, smax: \
+        roi_align_backward_reference(g, geom, hw, g.shape[2], smax)
+    try:
+        plain = insitu_errors(model, batch, rand, ref, targets)
+    finally:
+        rp.roi_align_grad_kernel = real
+    print(f"in-situ step with the plain backward on the card in place of the "
+          f"kernel: gradient error {plain['grad']:.4g}")
+
+    def faulty(kind):
+        def grad_kernel(g, geom, hw, smax):
+            geom = geom.clone()
+            if kind == "xy":
+                geom[..., [0, 1, 2, 3, 4, 5]] = geom[..., [1, 0, 3, 2, 5, 4]]
+            elif kind == "level":
+                geom[..., 7] = (geom[..., 7] + 1).clamp(max=len(hw) - 1)
+            out = real(g, geom, hw, smax)
+            return [o.zero_() for o in out] if kind == "dropped" else out
+        return grad_kernel
+
+    for kind in GRAD_FAULTS:
+        rp.roi_align_grad_kernel = faulty(kind)
+        try:
+            fe = insitu_errors(model, batch, rand, ref, targets)
+        finally:
+            rp.roi_align_grad_kernel = real
+        print(f"in-situ step with the backward fault {kind}: gradient error "
+              f"{fe['grad']:.4g}")
+        if not fe["grad"] > INSITU_TOLS["grad"]:
+            raise AssertionError(f"the in-situ check misses the fault {kind}")
+
+
+def train_path(preset: str, smi: str, extra=()):
+    """train_cli.main at full width: TRAIN_WARMUP + TRAIN_TIMED steps with
+    the counts set to 0 just before and read just after; ms / step and
+    img/s over the timed steps, the peak memory, the launches by shape."""
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.kernels import roi_align_patch
+
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    counters = all_counters()
+    with tempfile.TemporaryDirectory() as out:
+        argv = train_argv(preset, steps, extra) + ["--output-dir", out]
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+        launches, per_step = split_roi_counts(roi_align_patch.counter, steps)
+        for k, c in counters.items():
+            if k != "roi_align":
+                launches[k], per_step[k] = c.launches, {
+                    s: n / steps for s, n in c.by_shape.items()}
+        line = json.loads(open(os.path.join(out, "log.jsonl")).readline())
+    step_ms = sum(res["step_s"][TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
+    data_ms = sum(res["data_s"][TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
+    losses = {k: v for k, v in line.items() if k.startswith("loss")}
+    desc = (f"{preset}{' ' + ' '.join(extra) if extra else ''}, "
+            f"{TRAIN_PX}x{TRAIN_PX} bs{TRAIN_BATCH}")
+    print(f"training {desc}: {step_ms:.2f} ms/step, "
+          f"{TRAIN_BATCH / step_ms * 1e3:.2f} img/s over {TRAIN_TIMED} steps "
+          f"after {TRAIN_WARMUP} (data {data_ms:.1f} ms/step beside it), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB, on {smi}; last losses {losses}; RoIAlign launches per step "
+          f"{per_step['roi_align']} forward, {per_step['roi_align_bwd']} "
+          f"backward")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{desc}: non-finite losses {losses}")
+    want = dict(TRAIN_ROI)
+    if preset == MASK_PRESET:
+        want.update(TRAIN_MASK_ROI)
+    want_fwd = {s: 1.0 for s in want}
+    want_bwd = {("bwd", *s): 1.0 for s in want if s[2] != 28}
+    if (per_step["roi_align"] != want_fwd
+            or per_step["roi_align_bwd"] != want_bwd
+            or any(per_step[k] for k in counters if k != "roi_align")):
+        raise AssertionError(f"{desc}: launches per step {per_step}, want "
+                             f"{want_fwd} and {want_bwd}")
+    del res
+    return launches, per_step
+
+
+def check_learning(smi: str):
+    """A small detector learns the synthetic squares task on the card."""
+    from mrla_tpu_torch.detect import train_cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        res = train_cli.main(LEARN_ARGV + ["--device", "cuda",
+                                           "--output-dir", out])
+        lines = [json.loads(s) for s in open(os.path.join(out, "log.jsonl"))]
+    loss = res["loss"]
+    first = sum(loss[:LEARN_WINDOW]) / LEARN_WINDOW
+    last = sum(loss[-LEARN_WINDOW:]) / LEARN_WINDOW
+    print(f"learning: faster_rcnn layers 1-1-1-1, 128 px, 3 classes, bs8, "
+          f"lr 5e-3, {len(loss)} steps in {time.perf_counter() - t0:.1f} s "
+          f"on {smi}: mean loss of the first {LEARN_WINDOW} steps "
+          f"{first:.4f}, of the last {last:.4f} (ratio {last / first:.4f}, "
+          f"tol {LEARN_RATIO_TOL}); AP50 {lines[-1]['AP50']:.4f}, mAP "
+          f"{lines[-1]['mAP']:.4f}")
+    if not last / first <= LEARN_RATIO_TOL:
+        raise AssertionError(f"the loss fell only to {last / first:.3f} of "
+                             f"its start")
+
+
+def train_detect(smi: str):
+    """The detection training phase; returns (RoIAlign backward rows,
+    launches, launches per step by shape) of the main training path."""
+    torch.cuda.empty_cache()
+    rows = check_roi_align_grad()
+    check_roi_align_autograd()
+    check_insitu()
+    torch.cuda.empty_cache()
+    launches, per_step = train_path(DET_PRESET, smi)
+    train_path(MASK_PRESET, smi)
+    train_path(DET_PRESET, smi, ("--bf16",))
+    check_learning(smi)
+    return rows, launches, per_step
+
+
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -1041,6 +1533,9 @@ def kernels_line(rows, launches, per_forward):
                       "mrla_tpu/kernels/deit_token_tail.py:227", DEIT_PATH),
         "roi_align": ("roi_align_patch", "mrla_tpu_torch/csrc/roi_align.cu",
                       "mrla_tpu/kernels/roialign_patch.py:306", DET_PATH),
+        "roi_align_bwd": ("roi_align_bwd", "mrla_tpu_torch/csrc/roi_align.cu",
+                          "mrla_tpu/kernels/roialign_patch.py:438",
+                          TRAIN_PATH),
     }
     out = []
     for key, (name, source, replaces, path) in meta.items():
@@ -1059,7 +1554,7 @@ def kernels_line(rows, launches, per_forward):
             "launches_per_forward": sum(counts.values()),
             "main_path": path,
             "launches_on_other_paths": {
-                other: n[key] for other, n in launches.items()
+                other: n.get(key, 0) for other, n in launches.items()
                 if other != path},
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": weighted("ms"),
@@ -1103,6 +1598,8 @@ def main() -> int:
     rows["roi_align"], det_launches, det_per_forward = serve_detect(smi)
     launches.update(det_launches)
     per_forward.update(det_per_forward)
+    rows["roi_align_bwd"], launches[TRAIN_PATH], per_forward[TRAIN_PATH] = \
+        train_detect(smi)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-// Multi-level aligned RoIAlign forward, CUDA C++ for sm_90a.
+// Multi-level aligned RoIAlign forward and backward, CUDA C++ for sm_90a.
 //
-// Replaces the TPU kernel mrla_tpu/kernels/roialign_patch.py (_fwd_call ->
-// _kernel, reached through roi_align_patch).  For every roi and output bin
+// The forward replaces the TPU kernel mrla_tpu/kernels/roialign_patch.py
+// (_fwd_call -> _kernel, reached through roi_align_patch).  For every roi and output bin
 // it averages gy x gx bilinear samples of the roi's pyramid level
 // (mmdet SingleRoIExtractor with RoIAlign(aligned=True); sampling_ratio=0
 // gives each roi its own adaptive gy, gx):
@@ -195,6 +195,122 @@ cudaError_t launch(const Levels& lv, const float* geom, void* out, int R,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// Replaces the TPU kernel mrla_tpu/kernels/roialign_patch.py (_bwd_call ->
+// _bwd_kernel, the custom VJP of roi_align_patch): the transpose of the
+// forward above.  For every valid roi, bin (oy, ox), sample slot (i, j) and
+// corner
+//
+//     grad[level][b, y, x, c] += wy * wx * g[r, oy, ox, c]
+//
+// with the forward's own taps (axis_tap: border rules, slot weights), read
+// from the same geometry rows, so the level and the sample counts are the
+// forward's.  Nothing goes to the rois or to valid.
+//
+// A bin's slots along one axis touch few distinct cells (gy + 1 at most on
+// the adaptive grid, whose samples lie at most one cell apart; 2 * gy in
+// general): the block first sums each bin's slot weights per cell (one row
+// of the TPU kernel's Ay / Ax matrices, kept sparse), so a bin scatters
+// wy(y) * wx(x) * g to at most (gy + 1)(gx + 1) cells instead of adding
+// 4 * gy * gx corner terms.
+//
+// What bounds it on an H100: the zero-filled fp32 gradient buffers (the
+// wrapper's, 435 MB for P2..P5 at 800 x 800, batch 8) and the atomic
+// read-modify-writes into the rois' footprints, which resolve in L2.  The
+// TPU kernel avoids write races because its grid runs the rois one after
+// another (a read-modify-write DMA of a patch per roi); here blocks run in
+// no order on 132 SMs and neighbouring rois and bins overlap, so every add
+// is an fp32 atomic, 16 bytes at a time (atomicAdd on float4, sm_90).  The
+// sums therefore land in a different order from run to run: the result is
+// deterministic to fp32 rounding only.
+//
+// Design (simple first): one block per roi; threads loop over (bin, 8
+// channels) items, a warp covering 32 x 8 consecutive channels of one bin:
+// two 16-byte loads of the cotangent, then two 16-byte atomics per cell.
+
+struct GradLevels {
+  float* base[kMaxLevels];
+  int H[kMaxLevels];
+  int W[kMaxLevels];
+};
+
+// One cell of a bin along one axis and the summed weight of its slots.
+struct Cell {
+  int idx;
+  float w;
+};
+
+__device__ __forceinline__ void add_cell(Cell* cells, int& m, int idx,
+                                         float w) {
+  if (w == 0.f) return;
+  for (int k = 0; k < m; ++k)
+    if (cells[k].idx == idx) {
+      cells[k].w += w;
+      return;
+    }
+  cells[m++] = Cell{idx, w};
+}
+
+__device__ __forceinline__ void red_add8(float* p, float w, const float* g) {
+  float4* q = reinterpret_cast<float4*>(p);
+  atomicAdd(q, make_float4(w * g[0], w * g[1], w * g[2], w * g[3]));
+  atomicAdd(q + 1, make_float4(w * g[4], w * g[5], w * g[6], w * g[7]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    roi_align_bwd_kernel(GradLevels lv, const float* __restrict__ geom,
+                         const float* __restrict__ grad, int P, int C, int O,
+                         int smax) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = 2 * smax;  // cells a bin can touch along one axis
+  Cell* cells = reinterpret_cast<Cell*>(smem_raw);  // [2][O][K]: y, then x
+  int* counts = reinterpret_cast<int*>(cells + 2 * O * K);  // [2][O]
+  const int64_t r = blockIdx.x;
+  const float* gm = geom + r * kGeom;
+  if (gm[6] == 0.f) return;  // invalid rois add nothing
+  const int level = (int)gm[7];
+  const int H = lv.H[level], W = lv.W[level];
+  for (int k = threadIdx.x; k < 2 * O; k += kThreads) {
+    const int axis = k / O, o = k % O;
+    const float g = gm[4 + axis];
+    const int n = axis == 0 ? H : W;
+    const int ng = min((int)g, smax);
+    Cell* row = cells + k * K;
+    int m = 0;
+    for (int i = 0; i < ng; ++i) {
+      const Tap t = axis_tap(gm[axis], gm[2 + axis], g, n, o, i);
+      add_cell(row, m, t.lo, t.wlo);
+      add_cell(row, m, t.hi, t.whi);
+    }
+    counts[k] = m;
+  }
+  __syncthreads();
+
+  float* base = lv.base[level] + (r / P) * (int64_t)H * W * C;
+  const float* g_r = grad + r * (int64_t)O * O * C;
+  const int groups = C / 8;
+  const int items = O * O * groups;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int bin = it / groups;
+    const int c0 = (it % groups) * 8;
+    const int oy = bin / O, ox = bin % O;
+    const Vec8 gv = load8(g_r + (int64_t)bin * C + c0);
+    const Cell* cy = cells + oy * K;
+    const Cell* cx = cells + (O + ox) * K;
+    const int ny = counts[oy], nx = counts[O + ox];
+    for (int a = 0; a < ny; ++a) {
+      float* row = base + (int64_t)cy[a].idx * W * C + c0;
+      for (int b = 0; b < nx; ++b)
+        red_add8(row + (int64_t)cx[b].idx * C, cy[a].w * cx[b].w, gv.v);
+    }
+  }
+}
+
+size_t bwd_smem_bytes(int O, int smax) {
+  return sizeof(Cell) * 2 * O * 2 * smax + sizeof(int) * 2 * O;
+}
+
 }  // namespace
 
 // feats: L (1..4) levels [B, H_l, W_l, C] NHWC contiguous, 16-byte aligned;
@@ -217,4 +333,32 @@ extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
   const int R = B * P;
   return (int)(bf16 ? launch<__nv_bfloat16>(lv, g, out, R, P, C, O, smax, s)
                     : launch<float>(lv, g, out, R, P, C, O, smax, s));
+}
+
+// The backward.  grad0..grad3: L (1..4) fp32 gradient buffers [B, H_l, W_l,
+// C], NHWC contiguous, 16-byte aligned, zero-filled by the caller (the
+// kernel adds into them); geom [B * P, 8] fp32, the forward's; g the fp32
+// cotangent [B, P, O, O, C], contiguous.  C % 8 == 0, O >= 1, 1 <= smax
+// and the cell tables within 48 KB of shared memory, else
+// cudaErrorInvalidValue.
+extern "C" int roi_align_bwd(void* grad0, void* grad1, void* grad2,
+                             void* grad3, int h0, int w0, int h1, int w1,
+                             int h2, int w2, int h3, int w3, int L,
+                             const void* geom, const void* g, int B, int P,
+                             int C, int O, int smax, void* stream) {
+  if (L < 1 || L > kMaxLevels || C <= 0 || C % 8 || O < 1 || smax < 1 ||
+      bwd_smem_bytes(O, smax) > 48 * 1024 || B < 0 || P < 0 ||
+      (int64_t)B * P > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  GradLevels lv{{static_cast<float*>(grad0), static_cast<float*>(grad1),
+                 static_cast<float*>(grad2), static_cast<float*>(grad3)},
+                {h0, h1, h2, h3},
+                {w0, w1, w2, w3}};
+  const int R = B * P;
+  if (R > 0)
+    roi_align_bwd_kernel<<<R, kThreads, bwd_smem_bytes(O, smax),
+                           static_cast<cudaStream_t>(stream)>>>(
+        lv, static_cast<const float*>(geom), static_cast<const float*>(g), P,
+        C, O, smax);
+  return (int)cudaGetLastError();
 }

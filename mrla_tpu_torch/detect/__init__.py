@@ -3,15 +3,17 @@ PyTorch: presets, anchors, box coding and NMS, RoIAlign, the FPN neck, the
 backbone export and the detectors.
 
 The detectors (``FasterRCNN``, ``MaskRCNN``, ``two_stage_predict``, ...)
-are imported from ``detect.two_stage``: it needs the kernels package, which
-imports ``detect.roi_align``, so this package does not import it."""
+are imported from ``detect.two_stage`` and their training from
+``detect.two_stage_train`` / ``detect.train_cli``: they need the kernels
+package, which imports ``detect.roi_align``, so this package does not
+import them."""
 
 from mrla_tpu_torch.detect.anchors import (
     base_anchors,
     grid_anchors,
     pyramid_anchors,
 )
-from mrla_tpu_torch.detect.backbone import MRLABackboneFPN
+from mrla_tpu_torch.detect.backbone import MRLABackboneFPN, freeze_stages
 from mrla_tpu_torch.detect.bbox import (
     bbox2delta,
     bbox_overlaps,
@@ -25,14 +27,17 @@ from mrla_tpu_torch.detect.roi_align import (
     batched_roi_align,
     default_max_grid,
     map_roi_levels,
+    roi_align_backward_reference,
     roi_align_reference,
     roi_geometry,
 )
+from mrla_tpu_torch.detect.targets import max_iou_assign
 
 __all__ = [
     "FPN", "DetectionPreset", "MRLABackboneFPN", "PRESETS", "base_anchors",
     "batched_roi_align", "bbox2delta", "bbox_overlaps", "default_max_grid",
-    "delta2bbox", "fpn_forward", "grid_anchors", "map_roi_levels",
+    "delta2bbox", "fpn_forward", "freeze_stages", "grid_anchors",
+    "map_roi_levels", "max_iou_assign",
     "multiclass_nms_fixed", "nms_fixed", "pyramid_anchors",
-    "roi_align_reference", "roi_geometry",
+    "roi_align_backward_reference", "roi_align_reference", "roi_geometry",
 ]

@@ -19,9 +19,10 @@ The reference's two-stage configs extract RoI features with
 
 :func:`roi_geometry` computes, once per call and on [B, P]-sized tensors,
 everything that decides where a roi samples: level, aligned corner, bin
-sizes, samples per axis, validity.  The CUDA kernel
-(``kernels/roialign_patch.py``) and :func:`roi_align_reference` both read
-that one array, so they cannot disagree on a level or a sample count.
+sizes, samples per axis, validity.  The CUDA kernels
+(``kernels/roialign_patch.py``), :func:`roi_align_reference` and its
+transpose :func:`roi_align_backward_reference` all read that one array, so
+they cannot disagree on a level or a sample count.
 """
 
 from __future__ import annotations
@@ -174,6 +175,57 @@ def roi_align_reference(feats: Sequence[torch.Tensor], geom: torch.Tensor,
                     + corner(yhi[sl], xhi[sm], wyhi[sl], wxhi[sm]))
     acc = acc * g[:, GEOM_VALID, None, None, None]
     return acc.reshape(b, p, o, o, c).to(feats[0].dtype)
+
+
+def roi_align_backward_reference(grad: torch.Tensor, geom: torch.Tensor,
+                                 feats_hw: Sequence[Sequence[int]],
+                                 out_size: int, smax: int) -> list:
+    """Plain PyTorch version of the RoIAlign backward kernel, the transpose
+    of :func:`roi_align_reference`: the cotangent grad [B, P, out, out, C]
+    and the forward's geometry -> the fp32 gradient of each level
+    [B, H_l, W_l, C] (``feats_hw`` gives (H_l, W_l)).  The same samples and
+    corners as the forward, each scattered with ``index_add_`` into one flat
+    fp32 pyramid; rois whose valid is 0 add nothing."""
+    b, p, c = grad.shape[0], grad.shape[1], grad.shape[-1]
+    r = b * p
+    dev = grad.device
+    heights = torch.tensor([int(h) for h, _ in feats_hw], device=dev)
+    widths = torch.tensor([int(w) for _, w in feats_hw], device=dev)
+    sizes = heights * widths
+    offsets = torch.cumsum(sizes, 0) - sizes
+    sum_hw = int(sizes.sum())
+    g = geom.reshape(r, GEOM_FIELDS).to(dev)
+    lvl = g[:, GEOM_LEVEL].long()
+    h_l, w_l = heights[lvl], widths[lvl]
+    off = offsets[lvl] + torch.arange(b, device=dev).repeat_interleave(p) \
+        * sum_hw
+    ylo, yhi, wylo, wyhi = axis_samples(g[:, GEOM_Y1], g[:, GEOM_BIN_Y],
+                                        g[:, GEOM_GY], h_l, out_size, smax)
+    xlo, xhi, wxlo, wxhi = axis_samples(g[:, GEOM_X1], g[:, GEOM_BIN_X],
+                                        g[:, GEOM_GX], w_l, out_size, smax)
+    o = out_size
+    gv = grad.reshape(r, o, o, c).float() * g[:, GEOM_VALID, None, None, None]
+    flat = torch.zeros(b * sum_hw, c, device=dev)
+
+    def corner(yi, xi, wy, wx):
+        idx = (off[:, None, None] + yi[:, :, None] * w_l[:, None, None]
+               + xi[:, None, :])  # [R, O, O]
+        vals = gv * (wy[:, :, None] * wx[:, None, :])[..., None]
+        flat.index_add_(0, idx.reshape(-1), vals.reshape(-1, c))
+
+    ny = int(g[:, GEOM_GY].max().item()) if r else 0
+    nx = int(g[:, GEOM_GX].max().item()) if r else 0
+    for i in range(ny):
+        for j in range(nx):
+            sl = (slice(None), slice(None), i)
+            sm = (slice(None), slice(None), j)
+            corner(ylo[sl], xlo[sm], wylo[sl], wxlo[sm])
+            corner(ylo[sl], xhi[sm], wylo[sl], wxhi[sm])
+            corner(yhi[sl], xlo[sm], wyhi[sl], wxlo[sm])
+            corner(yhi[sl], xhi[sm], wyhi[sl], wxhi[sm])
+    levels = flat.reshape(b, sum_hw, c).split(sizes.tolist(), dim=1)
+    return [lv.reshape(b, int(h), int(w), c)
+            for lv, (h, w) in zip(levels, feats_hw)]
 
 
 def batched_roi_align(

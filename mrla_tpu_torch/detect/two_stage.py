@@ -1,4 +1,4 @@
-"""Two-stage detectors (Faster / Mask R-CNN) on the MRLA backbone, eval.
+"""Two-stage detectors (Faster / Mask R-CNN) on the MRLA backbone.
 
 The counterpart of the JAX package's ``detect/two_stage.py``, with the
 mmdet module tree and ``state_dict`` keys (``backbone``, ``neck``,
@@ -17,8 +17,9 @@ checkpoint loads as it is:
   * ``FCNMaskHead``: four 3x3 convs, a 2x2 stride-2 transposed conv, 1x1
     per-class logits at 28 x 28;
   * ``FasterRCNN`` / ``MaskRCNN``: backbone (features only) + FPN + heads;
-    RoIAlign on P2..P5 through ``kernels.roi_align_patch`` (the CUDA kernel
-    for CUDA tensors, its plain version on the CPU).
+    RoIAlign on P2..P5 through ``kernels.roi_align_patch`` (the CUDA kernels
+    for CUDA tensors, the plain versions on the CPU; differentiable, so the
+    same modules train: ``detect/two_stage_train.py``).
 
 Tensors are NHWC at every public function, as in the JAX package.
 """
@@ -50,6 +51,11 @@ ROI_STRIDES = (4, 8, 16, 32)
 ROI_SIZE = 7  # the box head's RoI features, 7 x 7 (the mask head's 14)
 FPN_CHANNELS = 256
 RPN_STRIDES = (4, 8, 16, 32, 64)
+
+
+def run_stage(name: str, fn, *args, **kwargs):
+    """The default ``stage`` hook: run the stage ``name``."""
+    return fn(*args, **kwargs)
 
 
 def _normal(layer: nn.Module, std: float,
@@ -213,6 +219,7 @@ class FasterRCNN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rpn_nms_pre, self.num_proposals = rpn_nms_pre, num_proposals
+        self.num_classes = num_classes
         self.roi_sampling_ratio = roi_sampling_ratio
         self.backbone = ResNetMRLALight(list(layers), features_only=True,
                                         generator=generator)
@@ -231,6 +238,15 @@ class FasterRCNN(nn.Module):
 
     def extract_feats(self, x: torch.Tensor) -> tuple:
         return self.neck(self.backbone(x))  # P2..P6
+
+    def rpn_forward(self, x: torch.Tensor, stage=run_stage):
+        """First stage only: (pyramid P2..P6, per-level RPN outputs), each
+        stage through ``stage(name, fn, *args)`` (default: call it)."""
+        feats = stage("FPN", self.neck,
+                      stage("backbone", self.backbone, x.to(self.dtype)))
+        rpn_outs = stage("RPN head", lambda fs: tuple(
+            self.rpn_head(f) for f in fs), feats)
+        return feats, rpn_outs
 
     def roi_feats(self, feats, rois, roi_valid, out_size: int = ROI_SIZE):
         """RoIAlign on P2..P5, in fp32 as the JAX module does (the features
@@ -253,8 +269,7 @@ class FasterRCNN(nn.Module):
                 proposal_valid: Optional[torch.Tensor] = None) -> Dict:
         """[B, H, W, 3] NHWC images -> {rpn, proposals, proposal_valid, cls,
         reg, feats}."""
-        feats = self.extract_feats(x.to(self.dtype))
-        rpn_outs = tuple(self.rpn_head(f) for f in feats)
+        feats, rpn_outs = self.rpn_forward(x)
         if proposals is None:
             proposals, _, proposal_valid = rpn_proposals(
                 rpn_outs, (x.shape[1], x.shape[2]), nms_pre=self.rpn_nms_pre,

@@ -22,6 +22,7 @@ from mrla_tpu_torch.kernels.mrla_megatail import (
     mrla_block_tail_fused_next_reference,
 )
 from mrla_tpu_torch.kernels.roialign_patch import (
+    roi_align_grad_kernel,
     roi_align_kernel,
     roi_align_patch,
 )
@@ -45,6 +46,7 @@ __all__ = [
     "mrla_light_gate",
     "pack_stage4_params",
     "pack_tail_params",
+    "roi_align_grad_kernel",
     "roi_align_kernel",
     "roi_align_patch",
     "stage4_resident",

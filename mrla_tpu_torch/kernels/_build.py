@@ -50,9 +50,11 @@ SIGNATURES = {
     "deit_token_tail_scratch_per_image": [_I] * 4,
     # x, ot, vec, taps, scratch, out, B, N, C, d, ktap, stream
     "deit_token_tail_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    # f0..f3, (H, W) of 4 levels, L, geom, out, B, P, C, O, smax, in_bf16,
-    # out_bf16, stream
+    # f0..f3, (H, W) of 4 levels, L, geom, out, B, P, C, O, smax, bf16,
+    # stream
     "roi_align_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 6 + [_P],
+    # grad0..grad3, (H, W) of 4 levels, L, geom, g, B, P, C, O, smax, stream
+    "roi_align_bwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 5 + [_P],
 }
 
 

@@ -1,32 +1,47 @@
-"""Multi-level aligned RoIAlign forward as a CUDA kernel, with its plain
-version.
+"""Multi-level aligned RoIAlign as CUDA kernels (forward and backward),
+with their plain versions.
 
 ``roi_align_patch`` is the counterpart of the JAX package's
 ``roi_align_patch`` (``mrla_tpu/kernels/roialign_patch.py``) and takes the
 same arguments: feats per level [B, H_l, W_l, C] (NHWC), rois [B, P, 4]
 xyxy in image coordinates, roi_valid [B, P] -> [B, P, out, out, C].  The
 per-roi geometry comes from ``detect.roi_align.roi_geometry`` (one small
-[B, P, 8] fp32 array); the kernel (``csrc/roi_align.cu``) and the plain
-version ``detect.roi_align.roi_align_reference`` both read it.  Unlike the
-TPU kernel there is no 56-cell patch (so no coverage limit), no 8-aligned
-column origin and no C % 128 condition: the kernel takes C % 8 == 0, one to
-four levels, and bf16 or fp32 features, with the output in the features'
-dtype.  Its C entry point rejects the rest with cudaErrorInvalidValue (1),
-and the wrapper raises.
+[B, P, 8] fp32 array); the kernels (``csrc/roi_align.cu``) and the plain
+versions ``detect.roi_align.roi_align_reference`` /
+``roi_align_backward_reference`` all read it.  Unlike the TPU kernel there
+is no 56-cell patch (so no coverage limit), no 8-aligned column origin and
+no C % 128 condition: the forward takes C % 8 == 0, one to four levels, and
+bf16 or fp32 features, with the output in the features' dtype.  Its C entry
+point rejects the rest with cudaErrorInvalidValue (1), and the wrapper
+raises.
 
-For CPU tensors the wrapper runs the plain version; for CUDA tensors it
-launches the kernel or raises.  ``roi_align_patch.counter`` counts calls
-and launches, the launches also by (B, P, out, C).  No gradient: detection
-training (the TPU kernel's custom VJP) is not ported yet.
+Autograd: ``roi_align_patch`` is one ``torch.autograd.Function`` on both
+devices, as the JAX function is a custom VJP.  Its forward computes the
+geometry once and saves only that (no activation); its backward scatters
+the cotangent into a zero-filled fp32 gradient per level, through the
+backward kernel (``roi_align_grad_kernel``; fp32 cotangent, C % 8 == 0)
+for CUDA tensors or ``roi_align_backward_reference`` for CPU tensors, and
+casts it to each level's dtype.  No gradient goes to ``rois`` or
+``roi_valid`` (they are detached), as in mmcv and the JAX VJP.
+
+For CPU tensors the wrapper runs the plain versions; for CUDA tensors it
+launches the kernels or raises.  ``roi_align_patch.counter`` counts calls
+and launches of both kernels: forward launches by (B, P, out, C), backward
+launches by ("bwd", B, P, out, C).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from mrla_tpu_torch.detect.roi_align import roi_align_reference, roi_geometry
+from mrla_tpu_torch.detect.roi_align import (
+    roi_align_backward_reference,
+    roi_align_reference,
+    roi_geometry,
+)
 from mrla_tpu_torch.kernels._build import LaunchCounter, check, library
 from mrla_tpu_torch.kernels.mrla_epilogue import use_plain_version
 
@@ -66,6 +81,63 @@ def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
     return out
 
 
+def roi_align_grad_kernel(grad: torch.Tensor, geom: torch.Tensor,
+                          feats_hw: Sequence[Sequence[int]],
+                          smax: int) -> List[torch.Tensor]:
+    """Launch the backward kernel on a CUDA cotangent grad [B, P, out, out,
+    C] (fp32) with the forward's geometry -> the fp32 gradient of each level
+    [B, H_l, W_l, C]; the buffers are zero-filled here and the kernel adds
+    into them.  Counts the launch under ("bwd", B, P, out, C)."""
+    if grad.dtype != torch.float32:
+        raise TypeError(f"the cotangent must be float32, got {grad.dtype}")
+    if not 1 <= len(feats_hw) <= MAX_LEVELS:
+        raise ValueError(f"{len(feats_hw)} levels; 1 to {MAX_LEVELS} taken")
+    b, p, o, _, c = grad.shape
+    dev = grad.device
+    grad = grad.contiguous()
+    geom = geom.to(dev, torch.float32).contiguous()
+    grads = [torch.zeros((b, int(h), int(w), c), dtype=torch.float32,
+                         device=dev) for h, w in feats_hw]
+    ptrs = [g.data_ptr() for g in grads] + [None] * (MAX_LEVELS - len(grads))
+    dims = []
+    for i in range(MAX_LEVELS):
+        dims += [int(v) for v in feats_hw[i]] if i < len(grads) else [0, 0]
+    with torch.cuda.device(dev):
+        err = library().roi_align_bwd(
+            *ptrs, *dims, len(grads), geom.data_ptr(), grad.data_ptr(), b, p,
+            c, o, smax, torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, f"roi_align_bwd (C={c}, out={o}, smax={smax})")
+    roi_align_patch.counter.launch(("bwd", b, p, o, c))
+    return grads
+
+
+class _RoIAlign(torch.autograd.Function):
+    """RoIAlign on given geometry; the gradient goes to the levels only."""
+
+    @staticmethod
+    def forward(ctx, geom, out_size, smax, *feats):
+        ctx.save_for_backward(geom)
+        ctx.out_size, ctx.smax = out_size, smax
+        ctx.levels = [(f.shape[1], f.shape[2], f.dtype) for f in feats]
+        if use_plain_version(feats[0]):
+            return roi_align_reference(feats, geom, out_size, smax)
+        return roi_align_kernel(feats, geom, out_size, smax)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (geom,) = ctx.saved_tensors
+        hw = [(h, w) for h, w, _ in ctx.levels]
+        if use_plain_version(grad):
+            grads = roi_align_backward_reference(grad, geom, hw, ctx.out_size,
+                                                 ctx.smax)
+        else:
+            grads = roi_align_grad_kernel(grad.float(), geom, hw, ctx.smax)
+        return (None, None, None,
+                *(g.to(dt) for g, (_, _, dt) in zip(grads, ctx.levels)))
+
+
 def roi_align_patch(
     feats: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -78,7 +150,8 @@ def roi_align_patch(
 ) -> torch.Tensor:
     """RoIAlign of ``rois`` on the pyramid ``feats`` ->
     [B, P, out_size, out_size, C] in the features' dtype;
-    ``sampling_ratio=0`` is the adaptive grid."""
+    ``sampling_ratio=0`` is the adaptive grid.  Differentiable with respect
+    to ``feats``."""
     roi_align_patch.counter.calls += 1
     if not 1 <= len(feats) <= MAX_LEVELS or len(feats) != len(strides):
         raise ValueError(f"{len(feats)} levels and {len(strides)} strides; "
@@ -90,12 +163,11 @@ def roi_align_patch(
                              f"{tuple(f.shape)}")
     if rois.dim() != 3 or tuple(rois.shape[::2]) != (b, 4):
         raise ValueError(f"rois must be [{b}, P, 4], got {tuple(rois.shape)}")
-    geom, smax = roi_geometry(rois, roi_valid, [f.shape[1:3] for f in feats],
-                              strides, out_size, sampling_ratio,
-                              finest_scale, max_grid)
-    if use_plain_version(feats[0]):
-        return roi_align_reference(feats, geom, out_size, smax)
-    return roi_align_kernel(feats, geom, out_size, smax)
+    geom, smax = roi_geometry(
+        rois.detach(), None if roi_valid is None else roi_valid.detach(),
+        [f.shape[1:3] for f in feats], strides, out_size, sampling_ratio,
+        finest_scale, max_grid)
+    return _RoIAlign.apply(geom, out_size, smax, *feats)
 
 
 roi_align_patch.counter = LaunchCounter()

@@ -27,7 +27,16 @@ RoIAlign and mask head for a mask preset), ``STAGE_RUNS`` times
 on the intermediates of one forward: its device time, its launches and its
 wall time per run (the host clock around runs that end in a synchronize),
 so that stages the host holds up show as wall time above device time.
-Needs a CUDA card.
+
+With ``--train --preset ...`` it profiles detection training instead: the
+trainer's step (``detect.train_cli.train_step``) at 800 x 800, batch 8, 80
+classes, fp32 (TF32 off), from the trainer's seeded detector; ``FORWARDS``
+traced steps after two, then each stage of one step alone as the loss's
+``stage`` hook records them (backbone, FPN, RPN head, RPN targets and
+loss, proposals, R-CNN targets, RoIAlign, box head, R-CNN loss, and the
+mask stages for a mask preset), the RoIAlign backward kernels alone on that
+step's rois, the whole backward (retaining the graph) and the optimizer
+step.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ DEIT_GROUPS = (
 
 
 DETECT_GROUPS = (
+    ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
     ("roi_align kernel", ("roi_align_kernel",)),
     ("mrla mega-tail kernel", ("mrla_megatail_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
@@ -177,6 +187,98 @@ def stage_times(fn) -> tuple[float, float, float]:
             sum(n for _, n in per_kernel.values()) / STAGE_RUNS, wall)
 
 
+def print_groups(per_kernel, busy: float, groups_of, runs: int) -> None:
+    groups = defaultdict(lambda: [0.0, 0])
+    for name, (t, n) in per_kernel.items():
+        g = groups[group_of(name, groups_of)]
+        g[0] += t
+        g[1] += n
+    print("device time by group (ms per run, share, launches per run):")
+    for g, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {g:52s} {t / runs:9.4f} {t / busy:7.3f} {n / runs:7.1f}")
+
+
+def train_profile(preset: str) -> int:
+    """Device time of detection training steps, by kernel group and by
+    stage (see the module's docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.detect.roi_align import roi_geometry
+    from mrla_tpu_torch.detect.two_stage import ROI_STRIDES
+    from mrla_tpu_torch.detect.two_stage_train import faster_rcnn_train_loss
+    from mrla_tpu_torch.kernels import roi_align_grad_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    targs = train_cli.parse_args(
+        ["--preset", preset, "--img-size", "800", "--batch-size", "8",
+         "--num-classes", "80", "--steps-per-epoch", str(FORWARDS + 2)])
+    dev = torch.device("cuda")
+    model = train_cli.build_model(targs, dev)
+    schedule, _ = train_cli.make_schedule(
+        targs, train_cli.PRESETS[preset], targs.steps_per_epoch)
+    opt = train_cli.make_optimizer(targs, model, schedule)
+    rand = torch.Generator(dev).manual_seed(1)
+    batches = [train_cli.to_device(b, dev)
+               for b in train_cli.data_iter(targs, True, 0)]
+    for b in batches[:2]:
+        train_cli.train_step(model, opt, b, rand, targs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            train_cli.train_step(model, opt, b, rand, targs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_ms(prof)
+    busy = sum(t for t, _ in per_kernel.values())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"window: {preset} training, {FORWARDS} steps, bs8, 800x800, "
+          f"fp32, wall {wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/step), "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}")
+    if busy == 0:
+        print("the profiler recorded no device time")
+        return 1
+    print_groups(per_kernel, busy, DETECT_GROUPS, FORWARDS)
+
+    stages = []  # (name, fn) of each stage of one step
+
+    def record(name, fn, *a, **kw):
+        stages.append((name, lambda: fn(*a, **kw)))
+        if "RoIAlign" in name:  # and its backward kernel alone, on its rois
+            out = a[3] if len(a) > 3 else 7
+            hw = [tuple(f.shape[1:3]) for f in a[0][:4]]
+            geom, smax = roi_geometry(a[1], a[2], hw, ROI_STRIDES, out,
+                                      model.roi_sampling_ratio)
+            ct = torch.randn(*a[1].shape[:2], out, out, a[0][0].shape[-1],
+                             device=dev)
+            stages.append((f"{name} backward kernel",
+                           lambda: roi_align_grad_kernel(ct, geom, hw, smax)))
+        return fn(*a, **kw)
+
+    b = batches[0]
+    total, _, _ = faster_rcnn_train_loss(
+        model, b["image"], b["gt_boxes"], b["gt_labels"], b["gt_valid"],
+        rand, gt_masks=b.get("gt_masks"), stage=record)
+    opt.zero_grad(set_to_none=True)
+    stages.append(("backward (all of it)",
+                   lambda: total.backward(retain_graph=True)))
+    stages.append(("optimizer step", opt.step))
+    print(f"each stage alone, {STAGE_RUNS} runs on the intermediates of one "
+          f"step (device ms, launches, wall ms per run):")
+    for name, fn in stages:
+        dev_ms, n, wall = stage_times(fn)
+        print(f"  {name:34s} {dev_ms:9.4f} {n:7.1f} {wall:9.3f}")
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--arch", default="resnet50_mrlal",
@@ -186,10 +288,17 @@ def main() -> int:
     parser.add_argument("--preset", default=None,
                         help="a two-stage detection preset: trace "
                              "two_stage_detections at 800 x 1344, bs8")
+    parser.add_argument("--train", action="store_true",
+                        help="with --preset: trace a training step at "
+                             "800 x 800, bs8 instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
+    if args.train:
+        if not args.preset:
+            parser.error("--train needs --preset")
+        return train_profile(args.preset)
     from torch.profiler import ProfilerActivity, profile
 
     from mrla_tpu_torch.serving import (
@@ -263,16 +372,7 @@ def main() -> int:
     if busy == 0:
         print("the profiler recorded no device time")
         return 1
-    groups = defaultdict(lambda: [0.0, 0])
-    for name, (t, n) in per_kernel.items():
-        g = groups[group_of(name, groups_of_arch)]
-        g[0] += t
-        g[1] += n
-    print("device time by group (ms per forward, share, launches per "
-          "forward):")
-    for g, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {g:52s} {t / FORWARDS:9.4f} {t / busy:7.3f} "
-              f"{n / FORWARDS:7.1f}")
+    print_groups(per_kernel, busy, groups_of_arch, FORWARDS)
     print("busiest kernels (ms per forward, launches per forward):")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:

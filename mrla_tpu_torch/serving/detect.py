@@ -44,6 +44,7 @@ from mrla_tpu_torch.detect.two_stage import (
     ROI_STRIDES,
     rcnn_detections,
     rpn_proposals,
+    run_stage,
     select_masks,
 )
 from mrla_tpu_torch.kernels.roialign_patch import roi_align_patch
@@ -126,11 +127,6 @@ def prepare_detect_params(
             "logits": conv(f"{pre}conv_logits"),
         }
     return out
-
-
-def run_stage(name: str, fn, *args, **kwargs):
-    """The default ``stage`` hook: run the stage ``name``."""
-    return fn(*args, **kwargs)
 
 
 @torch.inference_mode()

@@ -19,6 +19,11 @@ trunk, and RPN and box-head weights fitted to their measured inputs
 (``spread_detector_weights``), so that objectness and class scores differ
 between anchors, rois and classes and every image keeps detections over
 the 0.05 threshold.
+
+Detection training (``chip_smoke.py``'s training phase and
+``tests/test_torch_detect_train.py``): ``training_detector`` (the same
+spread heads on any depth), ``train_uniforms`` (the samplers' draws, handed
+to the CPU and the card alike) and ``detection_batch``.
 """
 
 from __future__ import annotations
@@ -259,3 +264,83 @@ def detector_serving_model(seed: int, preset: str =
     # the class logits then spread with a std near 3 (fitted at 256 x 384
     # they reach 5.8 there and the top scores saturate at 1.0)
     return spread_detector_weights(model.eval(), gen, px=(400, 672))
+
+
+def training_detector(seed: int, with_mask: bool = False,
+                      layers=(3, 4, 6, 3), num_classes: int = 80,
+                      px=(128, 128), **model_kw) -> torch.nn.Module:
+    """A ``FasterRCNN`` / ``MaskRCNN`` on the CPU from ``seed``, in eval
+    mode (the presets' frozen BN), for the training checks: BN scales drawn
+    from U(0.1, 0.5) and running variances from U(0.5, 1.5) (bn3 is
+    zero-initialised, which would leave every residual branch idle), and
+    the RPN and box head spread by :func:`spread_detector_weights` on ``px``
+    images, so that proposals and samples do not hang on rounding."""
+    from mrla_tpu_torch.detect.two_stage import FasterRCNN, MaskRCNN
+
+    gen = torch.Generator().manual_seed(seed)
+    cls = MaskRCNN if with_mask else FasterRCNN
+    model = cls(layers=layers, num_classes=num_classes, generator=gen,
+                **model_kw).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.1, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return spread_detector_weights(model, gen, px=px)
+
+
+def train_uniforms(seed: int, b: int, n_anchors: int, n_rcnn: int) -> dict:
+    """The samplers' uniforms of one training step (``faster_rcnn_train_loss``
+    takes them in place of a generator), drawn with numpy from ``seed``:
+    {"rpn": [b, 2, n_anchors], "rcnn": [b, 3, n_rcnn]} fp32 on the CPU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.random((b, r, n)).astype(np.float32))
+            for k, r, n in (("rpn", 2, n_anchors), ("rcnn", 3, n_rcnn))}
+
+
+def detection_batch(seed: int, b: int, px: int, num_classes: int,
+                    max_gt: int, with_masks: bool) -> dict:
+    """One batch of the synthetic squares task as CPU tensors (image,
+    gt_boxes, gt_labels, gt_valid, and gt_masks with ``with_masks``)."""
+    from mrla_tpu_torch.data.synthetic import synthetic_detection_batches
+
+    batch = next(synthetic_detection_batches(
+        b, image_size=px, num_classes=num_classes, steps=1, max_gt=max_gt,
+        seed=seed, with_masks=with_masks))
+    return {k: torch.from_numpy(v) for k, v in batch.items()
+            if k != "sample_valid"}
+
+
+def rcnn_pyramid_grads(model, batch: dict, rand: dict, targets=None,
+                       **loss_kw):
+    """One ``faster_rcnn_train_loss`` of ``model`` on ``batch`` (tensors on
+    the model's device) with the uniforms ``rand``, and the gradient of its
+    R-CNN loss (loss_cls + loss_bbox) to P2..P5, which the RoIAlign
+    backward produces.  Through the loss's ``stage`` hook: with ``targets``
+    given (the sampled rois of another run) the "R-CNN targets" stage
+    returns them in place of this device's own, and the "RoIAlign 7x7"
+    stage takes detached P2..P5 leaves.  Returns (loss terms, targets,
+    gradients of P2..P5)."""
+    from mrla_tpu_torch.detect.two_stage_train import faster_rcnn_train_loss
+
+    dev = batch["image"].device
+    leaves = []
+
+    def hook(name, fn, *args, **kw):
+        if name == "R-CNN targets" and targets is not None:
+            return {k: v.to(dev) for k, v in targets.items()}
+        if name == "RoIAlign 7x7":
+            leaves.extend(f.detach().requires_grad_() for f in args[0][:4])
+            args = (leaves,) + args[1:]
+        return fn(*args, **kw)
+
+    _, losses, used = faster_rcnn_train_loss(
+        model, batch["image"], batch["gt_boxes"], batch["gt_labels"],
+        batch["gt_valid"], rand, gt_masks=batch.get("gt_masks"), stage=hook,
+        **loss_kw)
+    grads = torch.autograd.grad(losses["loss_cls"] + losses["loss_bbox"],
+                                leaves)
+    return ({k: v.detach() for k, v in losses.items()}, used,
+            [g.detach() for g in grads])

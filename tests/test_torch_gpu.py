@@ -378,3 +378,133 @@ def test_detection_serving_routes_through_the_kernels(cuda):
     assert roi_align_patch.counter.by_shape == {(2, 200, 7, 256): 1}
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     assert valid.sum(1).min() > 0
+
+
+def _grad_tol(ct, geom, hw, o, smax):
+    """Each cell of the backward sums at most a few hundred weighted
+    cotangent terms, in another order (fp32 atomics): 64 fp32 roundings of
+    the sum of its terms' magnitudes, cell by cell."""
+    from mrla_tpu_torch.detect.roi_align import roi_align_backward_reference
+
+    mags = roi_align_backward_reference(ct.abs(), geom, hw, o, smax)
+    return [64 * 2.0 ** -24 * m + 1e-30 for m in mags]
+
+
+# 1 to 4 levels, C 8 and 256, out 7 and 14, the adaptive and a static grid;
+# the rois include invalid rows and rois off the canvas
+@pytest.mark.parametrize("levels,b,p,o,c,sr", [
+    (4, 2, 300, 7, 256, 0),
+    (4, 2, 50, 14, 256, 0),
+    (4, 1, 64, 7, 256, 2),
+    (3, 2, 40, 7, 8, 0),
+    (2, 1, 33, 14, 8, 2),
+    (1, 3, 17, 7, 256, 0),
+])
+def test_roi_align_grad_kernel_matches_plain(cuda, levels, b, p, o, c, sr):
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_backward_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.kernels import roi_align_grad_kernel, roi_align_patch
+
+    hw = ((200, 336), (100, 168), (50, 84), (25, 42))[:levels]
+    strides = (4, 8, 16, 32)[:levels]
+    feats, rois, valid = _roi_case(cuda, b, p, c, hw=hw, dtype=torch.float32)
+    geom, smax = roi_geometry(rois, valid, hw, strides, o, sr)
+    ct = torch.randn(b, p, o, o, c, generator=cuda, device="cuda")
+    roi_align_patch.counter.reset()
+    got = roi_align_grad_kernel(ct, geom, hw, smax)
+    again = roi_align_grad_kernel(ct, geom, hw, smax)
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.by_shape == {("bwd", b, p, o, c): 2}
+    want = roi_align_backward_reference(ct, geom, hw, o, smax)
+    for g, a, w, tol in zip(got, again, want, _grad_tol(ct, geom, hw, o,
+                                                        smax)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert ((g - w).abs() <= tol).all()
+        assert ((g - a).abs() <= tol).all()  # run to run: atomics' order
+    # invalid rois add nothing: a cotangent on them alone reaches no cell
+    only_invalid = ct * (~valid)[..., None, None, None]
+    for g in roi_align_grad_kernel(only_invalid, geom, hw, smax):
+        assert torch.count_nonzero(g) == 0
+
+
+def test_roi_align_grad_entry_point_rejects(cuda):
+    from mrla_tpu_torch.detect.roi_align import roi_geometry
+    from mrla_tpu_torch.kernels import roi_align_grad_kernel, roi_align_patch
+
+    hw = ((16, 16), (8, 8))
+    _, rois, valid = _roi_case(cuda, 1, 4, 8, hw=hw, canvas=(64, 64))
+    geom, smax = roi_geometry(rois, valid, hw, (4, 8), 7, 0)
+    roi_align_patch.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):  # C % 8 != 0
+        roi_align_grad_kernel(torch.randn(1, 4, 7, 7, 12, device="cuda"),
+                              geom, hw, smax)
+    with pytest.raises(TypeError, match="float32"):
+        roi_align_grad_kernel(torch.randn(1, 4, 7, 7, 8, device="cuda")
+                              .bfloat16(), geom, hw, smax)
+    assert roi_align_patch.counter.launches == 0
+    torch.cuda.synchronize()
+
+
+def test_roi_align_autograd_on_the_card(cuda):
+    """torch.autograd.grad of a seeded function of roi_align_patch on CUDA
+    tensors: the backward kernel runs (one launch), and the gradient to
+    every level equals the CPU Function's."""
+    from mrla_tpu_torch.kernels import roi_align_patch
+
+    hw = ((100, 168), (50, 84), (25, 42), (13, 21))
+    feats, rois, valid = _roi_case(cuda, 2, 200, 256, hw=hw,
+                                   canvas=(400, 672), dtype=torch.float32)
+    ct = torch.randn(2, 200, 7, 7, 256, generator=cuda, device="cuda")
+
+    def grads(fs, r, v, w):
+        fs = [f.detach().requires_grad_() for f in fs]
+        out = roi_align_patch(fs, r, v, (4, 8, 16, 32), 7, 0)
+        return torch.autograd.grad((out * w).sum(), fs)
+
+    roi_align_patch.counter.reset()
+    got = grads(feats, rois, valid, ct)
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.by_shape == {(2, 200, 7, 256): 1,
+                                                ("bwd", 2, 200, 7, 256): 1}
+    want = grads([f.cpu() for f in feats], rois.cpu(), valid.cpu(), ct.cpu())
+    for g, w in zip(got, want):
+        assert torch.count_nonzero(g) > 0
+        scale = w.abs().max().item()
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * scale
+
+
+def test_detection_training_step_on_the_card(cuda):
+    """A (1, 1, 1, 1) Faster R-CNN's training step on the card against the
+    same step on the CPU (same weights, batch and uniforms): the RPN loss
+    terms, and on the CPU's sampled rois the R-CNN loss terms and their
+    gradient to P2..P5 (what the backward kernel produces)."""
+    from mrla_tpu_torch.kernels import roi_align_patch
+    from mrla_tpu_torch.testing import (
+        detection_batch,
+        rcnn_pyramid_grads,
+        train_uniforms,
+        training_detector,
+    )
+
+    model = training_detector(0, layers=(1, 1, 1, 1), num_classes=5,
+                              rpn_nms_pre=300, num_proposals=200)
+    batch = detection_batch(1, 2, 160, 5, 4, False)
+    rand = train_uniforms(2, 2, 3 * sum(s * s for s in (40, 20, 10, 5, 3)),
+                          4 + 200)
+    want_l, targets, want_g = rcnn_pyramid_grads(model, batch, rand,
+                                                 rcnn_num=64, rpn_num=64)
+    roi_align_patch.counter.reset()
+    got_l, _, got_g = rcnn_pyramid_grads(
+        model.to("cuda"), {k: v.cuda() for k, v in batch.items()}, rand,
+        targets, rcnn_num=64, rpn_num=64)
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.by_shape == {(2, 64, 7, 256): 1,
+                                                ("bwd", 2, 64, 7, 256): 1}
+    for k in ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox"):
+        assert abs(got_l[k].item() - want_l[k].item()) <= \
+            1e-4 * abs(want_l[k].item()), k
+    assert torch.count_nonzero(want_g[0]) > 0  # small rois: mostly P2
+    for g, w in zip(got_g, want_g):
+        assert (g.cpu() - w).norm() <= 1e-4 * w.norm()
