@@ -16,7 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      path (800 x 1344, batch 8) gives them, with its time (CUDA events),
      its bound and the plain version's time; the DeiT token tail also at
      the other two published widths and at a batch of 3, and its cls rows
-     with ot doubled;
+     with ot doubled; the block tail from z (the HWBC block tail's kernel
+     too), the row tail and the copy at every shape the tail routes give
+     them and at the JAX package's test shapes (the row tail with and
+     without x1; the copy held bitwise, a new tensor, timed beside
+     x.clone());
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
@@ -32,7 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      with one wiring fault (in any one block; in the stage kernel's
      packing or its strided input) must fail that check;
   5. throughput: img/s over 20 forwards of each route, in turns, and the
-     peak device memory;
+     peak device memory; then the three tail routes on the same params
+     (serving/tail_routes.py: rowtail, every block's tail in the row-tail
+     kernel, the next conv1 inside it; block_tail, the HWBC block tail on
+     maps 28 or more wide and the block tail on the rest; copy, block_tail
+     with the copy kernel after each stage-1 block): 4 requests each with
+     the launches by shape exactly the tables below (no mega-tail nor
+     epilogue launch), the same logit check with one injected wiring
+     fault per route that must fail it (TAIL_FAULTS), copy's logits
+     bitwise block_tail's, and img/s in turns with the default route;
   6. serving and throughput of deit_mrlal_small_patch16_224 (full depth,
      224 px, batch 128, bf16) through prepare_deit_inference_params /
      deit_forward, from seeded weights spread as a trained model's
@@ -143,6 +155,57 @@ MEGATAIL_SHAPES = {
     (BATCH, 28, 28, 512, 128): ("layer2_0..2", 3),
     (BATCH, 28, 28, 512, 256): ("layer2_3", 1),
 }
+
+# The tail routes of resnet50_mrlal serving (serving/tail_routes.py) at 224
+# px, batch 128, keyed as the wrappers' counters key their launches:
+# (B, H, W, C, C1) for the row tail (C1 = 0: y alone), (B, H, W, C) for the
+# block tails and the copy.  serve_tail_routes() asserts exactly these.
+TAIL_PATHS = {t: f"tail route {t}" for t in ("rowtail", "block_tail",
+                                               "copy")}
+ROWTAIL_SHAPES = {
+    (BATCH, 56, 56, 256, 64): ("layer1_0..1", 2),
+    (BATCH, 56, 56, 256, 128): ("layer1_2", 1),
+    (BATCH, 28, 28, 512, 128): ("layer2_0..2", 3),
+    (BATCH, 28, 28, 512, 256): ("layer2_3", 1),
+    (BATCH, 14, 14, 1024, 256): ("layer3_0..4", 5),
+    (BATCH, 14, 14, 1024, 512): ("layer3_5", 1),
+    (BATCH, 7, 7, 2048, 512): ("layer4_0..1", 2),
+    (BATCH, 7, 7, 2048, 0): ("layer4_2", 1),
+}
+HWBC_SHAPES = {  # maps 28 or more wide: the HWBC block tail
+    (BATCH, 56, 56, 256): ("stage1", 3),
+    (BATCH, 28, 28, 512): ("stage2", 4),
+}
+BLOCK_TAIL_SHAPES = {
+    (BATCH, 14, 14, 1024): ("stage3", 6),
+    (BATCH, 7, 7, 2048): ("stage4", 3),
+}
+COPY_SHAPES = {(BATCH, 56, 56, 256): ("after layer1_0..2", 3)}
+TAIL_TABLES = {
+    "rowtail": {"rowtail": ROWTAIL_SHAPES},
+    "block_tail": {"block_tail_hwbc": HWBC_SHAPES,
+                   "block_tail": BLOCK_TAIL_SHAPES},
+    "copy": {"block_tail_hwbc": HWBC_SHAPES, "block_tail": BLOCK_TAIL_SHAPES,
+             "copy": COPY_SHAPES},
+}
+# further shapes the new kernels are checked at: the JAX package's tests'
+# (tests/test_kernels_tpu.py, tests/test_rowtail_kernel.py, each row tail
+# also without x1) and odd ones
+BLOCK_TAIL_EXTRA_SHAPES = [(2, 8, 8, 128), (8, 16, 16, 256), (3, 16, 16, 256),
+                           (3, 2, 7, 64)]
+ROWTAIL_EXTRA_SHAPES = [
+    (b, h, w, c, c1) for b, h, w, c, c1_ in [
+        (8, 6, 5, 256, 64), (8, 7, 7, 128, 128), (16, 14, 14, 512, 256),
+        (8, 2, 3, 128, 64)] for c1 in (c1_, 0)]
+COPY_EXTRA_SHAPES = [(3, 4, 5, 64), (8, 4, 4, 128)]
+# one wiring fault in one block of each route, each of which must fail the
+# logit check: the row tail given zeros for the identity of its ls·id term
+# (at a stage-1, a stage-2 and the last block); the block tail given z and
+# the identity swapped (an HWBC and a plain block tail); the copy after
+# layer1_1 handing on its copy of layer1_0's output
+TAIL_FAULTS = {"rowtail": [("no_id", 0), ("no_id", 5), ("no_id", 15)],
+               "block_tail": [("swap", 0), ("swap", 10)],
+               "copy": [("stale", 1)]}
 
 # The detection path: two-stage presets at the daemon's defaults (batch 8,
 # 800 x 1344, bf16, 1000 proposals, 100 detections, score_thr 0.05).  Its
@@ -312,7 +375,149 @@ def check_kernels(lib):
         del a, y, x1, y_ref, x1_ref
     rows["stage4"] = check_stage4(gen)
     rows["deit_tail"] = check_deit_tail(lib, gen)
+    # the HWBC block tail launches the block-tail kernel: one set of rows
+    rows["block_tail"] = rows["block_tail_hwbc"] = check_block_tail(lib, gen)
+    rows["rowtail"] = check_rowtail(lib, gen)
+    rows["copy"] = check_copy(lib, gen)
     torch.cuda.synchronize()
+    return rows
+
+
+def check_block_tail(lib, gen):
+    """The block-tail kernel (the route's mrla_block_tail and
+    mrla_block_tail_hwbc) against its plain version at every shape of the
+    block_tail route and the JAX tests' shapes."""
+    from mrla_tpu_torch.kernels import (
+        fused_block_tail,
+        fused_block_tail_reference,
+    )
+
+    rows = {}
+    shapes = {**HWBC_SHAPES, **BLOCK_TAIL_SHAPES}
+    shapes.update({s: ("JAX test / odd", 0) for s in BLOCK_TAIL_EXTRA_SHAPES})
+    for shape, (stage, _) in shapes.items():
+        b, h, w, c = shape
+        a = tail_inputs(gen, shape)
+        a["z"] = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        args = [a[k] for k in ("z", "identity", "gate", "wv", "lam",
+                               "bn_scale", "bn_bias")]
+        y = fused_block_tail(*args)
+        y_ref = fused_block_tail_reference(*args)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        tol = ulp_tol(y_ref.float(), 1)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in args]
+        ms = cuda_ms(lambda: lib.mrla_block_tail_bf16(
+            *ptrs, y.data_ptr(), b, h, w, c, stream))
+        plain_ms = cuda_ms(lambda: fused_block_tail_reference(*args), iters=5)
+        n = b * h * w * c
+        # relu(z + id) adds 2 operations an element to the epilogue's
+        bound_ms, by = bound(3 * n * 2 + b * c * 4 + 12 * c * 4, 0,
+                             (TAIL_FP32_OPS + 2) * n)
+        rows[shape] = dict(
+            shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=err, tol=tol,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"block tail {stage} [{b},{h},{w},{c}] bf16: max|Δy| {err:.3g}"
+              f" (tol {tol:.3g}: 1 bf16 ulp at max|y|) | kernel {ms:.4f} ms,"
+              f" bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+        if not err <= tol:
+            raise AssertionError(f"block tail {shape}: {err} > {tol}")
+        del a, args, y, y_ref
+    return rows
+
+
+def check_rowtail(lib, gen):
+    """The row-tail kernel against its plain version at every shape of the
+    rowtail route and the JAX row-tail test's shapes, with and without x1."""
+    from mrla_tpu_torch.kernels import mrla_rowtail, mrla_rowtail_reference
+    from mrla_tpu_torch.kernels.mrla_rowtail import _fold
+
+    rows = {}
+    shapes = dict(ROWTAIL_SHAPES)
+    shapes.update({s: ("JAX test", 0) for s in ROWTAIL_EXTRA_SHAPES})
+    for shape, (stage, _) in shapes.items():
+        b, h, w, c, c1 = shape
+        a = tail_inputs(gen, shape[:4])
+        args = [a[k] for k in ("out", "identity", "gate", "wv", "lam",
+                               "bn_scale", "bn_bias")]
+        w1 = (torch.randn(c1, c, generator=gen, device="cuda")
+              / c ** 0.5).bfloat16()
+        b1 = torch.randn(c1, generator=gen, device="cuda") * 0.2
+        extra = [w1, b1] if c1 else []
+        got = mrla_rowtail(*args, *extra)
+        want = mrla_rowtail_reference(*args, *extra)
+        y, y_ref = (got[0], want[0]) if c1 else (got, want)
+        err_y = (y.float() - y_ref.float()).abs().max().item()
+        tol_y = ulp_tol(y_ref.float(), 1)
+        err_x1, tol_x1 = 0.0, math.inf
+        if c1:
+            err_x1 = (got[1].float() - want[1].float()).abs().max().item()
+            tol_x1 = ulp_tol(want[1].float(), 2)
+        gs, ls = _fold(a["gate"], a["lam"], a["bn_scale"])
+        x1 = got[1] if c1 else None
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        ptrs = [a["out"].data_ptr(), a["identity"].data_ptr(), gs.data_ptr(),
+                a["wv"].data_ptr(), ls.data_ptr(), a["bn_bias"].data_ptr(),
+                ptr(w1 if c1 else None), ptr(b1 if c1 else None),
+                y.data_ptr(), ptr(x1)]
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = cuda_ms(lambda: lib.mrla_rowtail_bf16(*ptrs, b, h, w, c, c1,
+                                                   stream))
+        plain_ms = cuda_ms(lambda: mrla_rowtail_reference(*args, *extra),
+                           iters=5)
+        p = b * h * w
+        n = p * c
+        nbytes = (3 * n * 2 + p * c1 * 2 + c * c1 * 2 + c1 * 4 + b * c * 4
+                  + 11 * c * 4)
+        bound_ms, by = bound(nbytes, 2 * p * c * c1, TAIL_FP32_OPS * n)
+        rows[shape] = dict(
+            shape=f"{stage} [{b},{h},{w},{c}] C1={c1}",
+            max_abs_err=max(err_y, err_x1), tol=min(tol_y, tol_x1), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"row tail {stage} [{b},{h},{w},{c}] C1={c1} bf16: max|Δy| "
+              f"{err_y:.3g} (tol {tol_y:.3g}: 1 bf16 ulp at max|y|), "
+              f"max|Δx1| {err_x1:.3g} (tol {tol_x1:.3g}: 2 bf16 ulps at "
+              f"max|x1|) | kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({by}), plain {plain_ms:.4f} ms")
+        if not (err_y <= tol_y and err_x1 <= tol_x1):
+            raise AssertionError(f"row tail {shape}: y {err_y} > {tol_y} or "
+                                 f"x1 {err_x1} > {tol_x1}")
+        del a, args, got, want, y, y_ref, x1
+    return rows
+
+
+def check_copy(lib, gen):
+    """The copy kernel held bitwise to its input at the copy route's shape
+    and odd ones, a new tensor each time; timed beside x.clone()."""
+    from mrla_tpu_torch.kernels import hwbc_copy, hwbc_copy_reference
+
+    rows = {}
+    shapes = dict(COPY_SHAPES)
+    shapes.update({s: ("odd", 0) for s in COPY_EXTRA_SHAPES})
+    for shape, (stage, _) in shapes.items():
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        y = hwbc_copy(x)
+        same = torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = cuda_ms(lambda: lib.hwbc_copy_bf16(x.data_ptr(), y.data_ptr(),
+                                                b, h, w, c, stream))
+        plain_ms = cuda_ms(lambda: hwbc_copy_reference(x), iters=5)
+        library_ms = cuda_ms(lambda: x.clone())
+        n = b * h * w * c
+        bound_ms, by = bound(4 * n, 0, 0)
+        rows[shape] = dict(
+            shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=0.0 if same else
+            (y.float() - x.float()).abs().max().item(), tol=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=library_ms)
+        print(f"copy {stage} [{b},{h},{w},{c}] bf16: "
+              f"{'bitwise equal, a new tensor' if same else 'DIFFERS'} | "
+              f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, x.clone() {library_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"copy {shape}: not a new equal tensor")
+        del x, y
     return rows
 
 
@@ -420,8 +625,12 @@ def all_counters():
     """Every kernel wrapper's launch counter, by the kernels line's key."""
     from mrla_tpu_torch.kernels import (
         deit_token_tail,
+        fused_block_tail,
         fused_epilogue,
+        hwbc_copy,
         mrla_block_tail_fused_next,
+        mrla_block_tail_hwbc,
+        mrla_rowtail,
         roi_align_patch,
         stage4_resident,
     )
@@ -430,7 +639,11 @@ def all_counters():
             "epilogue": fused_epilogue.counter,
             "stage4": stage4_resident.counter,
             "deit_tail": deit_token_tail.counter,
-            "roi_align": roi_align_patch.counter}
+            "roi_align": roi_align_patch.counter,
+            "block_tail": fused_block_tail.counter,
+            "block_tail_hwbc": mrla_block_tail_hwbc.counter,
+            "rowtail": mrla_rowtail.counter,
+            "copy": hwbc_copy.counter}
 
 
 def check_logits_out(out) -> None:
@@ -503,8 +716,9 @@ def serve(smi: str):
     gen = torch.Generator().manual_seed(1)
     host_batches = [images(gen, BATCH, PX) for _ in range(REQUESTS)]
     batches = [xb.cuda() for xb in host_batches]
-    tables = {"megatail": MEGATAIL_SHAPES, "epilogue": EPILOGUE_SHAPES,
-              "stage4": STAGE4_SHAPES, "deit_tail": {}, "roi_align": {}}
+    tables = {k: {} for k in all_counters()}
+    tables.update(megatail=MEGATAIL_SHAPES, epilogue=EPILOGUE_SHAPES,
+                  stage4=STAGE4_SHAPES)
     stage4_epilogues = {s: v for s, v in EPILOGUE_SHAPES.items()
                         if v[0] == "stage4"}
     with torch.no_grad():
@@ -532,7 +746,100 @@ def serve(smi: str):
     for use_stage4 in (False, True, True, False):  # in turns, on one card
         throughput(forward(use_stage4), batches,
                    f"resnet50_mrlal {RESNET_PATHS[use_stage4]}", smi)
+    tail_launches, tail_per_forward = serve_tail_routes(
+        params, batches, host_batches, ref, forward(False), smi)
+    launches.update(tail_launches)
+    per_forward.update(tail_per_forward)
     return launches, per_forward
+
+
+def serve_tail_routes(params, batches, host_batches, ref, default, smi):
+    """The three tail routes (serving/tail_routes.py) on the serving params
+    of serve(): counted requests, the logit check against the same fp32 CPU
+    forward with one injected fault per route, the copy route bitwise equal
+    to the block-tail route, and img/s in turns with the default route."""
+    from mrla_tpu_torch.serving import resnet_mrlal_tail_forward
+
+    def forward(tail):
+        return lambda xb: resnet_mrlal_tail_forward(params, xb, tail)
+
+    launches, per_forward, logits = {}, {}, {}
+    for tail, table in TAIL_TABLES.items():
+        route = TAIL_PATHS[tail]
+        want = {k: {} for k in all_counters()}
+        for key, shapes in table.items():
+            want[key] = {s: n for s, (_, n) in shapes.items()}
+        logits[tail], launches[route], per_forward[route] = counted(
+            forward(tail), batches, f"resnet50_mrlal {route}", want)
+        check_logits(ref, logits[tail][0][:32].cpu(), route, LOGIT_ERROR_TOL)
+    same = all(torch.equal(a, b) for a, b in zip(logits["copy"],
+                                                 logits["block_tail"]))
+    print(f"tail route copy: logits of the {len(batches)} requests "
+          f"{'bitwise equal to' if same else 'DIFFER from'} the block_tail "
+          f"route's")
+    if not same:
+        raise AssertionError("the copy route changes the logits")
+    del logits
+
+    x32 = host_batches[0][:32].cuda()
+    errs = {f"{tail} {kind}@{at}": logit_error(
+        faulty_tail_forward(params, x32, tail, kind, at), ref)
+        for tail, faults in TAIL_FAULTS.items() for kind, at in faults}
+    print("logit error with one wiring fault on a tail route (route "
+          "kind@block or @copy): " + ", ".join(f"{k} {v:.4g}"
+                                               for k, v in errs.items()))
+    missed = [k for k, v in errs.items() if not v > LOGIT_ERROR_TOL]
+    if missed:
+        raise AssertionError(f"the logit check misses the faults {missed}")
+
+    turns = [(RESNET_PATHS[False], default)] + [
+        (route, forward(tail)) for tail, route in TAIL_PATHS.items()]
+    for route, fn in turns + turns[::-1]:  # in turns, on one card
+        throughput(fn, batches, f"resnet50_mrlal {route}", smi)
+    return launches, per_forward
+
+
+def faulty_tail_forward(params, x, tail: str, kind: str, at: int):
+    """A tail route with one wiring fault (TAIL_FAULTS) at call ``at`` of
+    its kernel wrapper."""
+    import mrla_tpu_torch.serving.tail_routes as routes
+
+    saved = {k: getattr(routes, k) for k in (
+        "mrla_rowtail", "mrla_block_tail", "mrla_block_tail_hwbc",
+        "hwbc_copy")}
+    calls = itertools.count()
+
+    def no_id(out, identity, *rest):
+        if next(calls) == at:
+            identity = torch.zeros_like(identity)
+        return saved["mrla_rowtail"](out, identity, *rest)
+
+    def swapped(name):
+        def tail_fn(z, identity, *rest):
+            if next(calls) == at:
+                z, identity = identity, z
+            return saved[name](z, identity, *rest)
+        return tail_fn
+
+    previous = []
+
+    def stale(y):
+        i = next(calls)
+        previous.append(y)
+        return saved["hwbc_copy"](previous[i - 1] if i == at else y)
+
+    if kind == "no_id":
+        routes.mrla_rowtail = no_id
+    elif kind == "swap":
+        routes.mrla_block_tail = swapped("mrla_block_tail")
+        routes.mrla_block_tail_hwbc = swapped("mrla_block_tail_hwbc")
+    else:
+        routes.hwbc_copy = stale
+    try:
+        return routes.resnet_mrlal_tail_forward(params, x, tail).cpu()
+    finally:
+        for k, v in saved.items():
+            setattr(routes, k, v)
 
 
 def serve_deit(smi: str):
@@ -1516,8 +1823,9 @@ def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
     path (the DeiT path for the token tail, use_stage4=True for the stage
-    kernel, use_stage4=False for the other two); the launches counted on
-    the other paths are listed beside."""
+    kernel, use_stage4=False for the epilogue and mega-tail, the detection
+    paths for RoIAlign, the tail routes for the block tails, row tail and
+    copy); the launches counted on the other paths are listed beside."""
     meta = {
         "epilogue": ("mrla_light_epilogue", "mrla_tpu_torch/csrc/mrla_epilogue.cu",
                      "mrla_tpu/kernels/mrla_epilogue.py:128",
@@ -1536,6 +1844,19 @@ def kernels_line(rows, launches, per_forward):
         "roi_align_bwd": ("roi_align_bwd", "mrla_tpu_torch/csrc/roi_align.cu",
                           "mrla_tpu/kernels/roialign_patch.py:438",
                           TRAIN_PATH),
+        "block_tail": ("mrla_block_tail",
+                       "mrla_tpu_torch/csrc/mrla_block_tail.cu",
+                       "mrla_tpu/kernels/mrla_epilogue.py:214",
+                       TAIL_PATHS["block_tail"]),
+        "rowtail": ("mrla_rowtail", "mrla_tpu_torch/csrc/mrla_rowtail.cu",
+                    "mrla_tpu/kernels/mrla_rowtail.py:173",
+                    TAIL_PATHS["rowtail"]),
+        "block_tail_hwbc": ("mrla_block_tail_hwbc",
+                            "mrla_tpu_torch/csrc/mrla_block_tail.cu",
+                            "mrla_tpu/kernels/mrla_epilogue_hwbc.py:222",
+                            TAIL_PATHS["block_tail"]),
+        "copy": ("hwbc_copy", "mrla_tpu_torch/csrc/hwbc_copy.cu",
+                 "scripts/exp_boundary.py:45", TAIL_PATHS["copy"]),
     }
     out = []
     for key, (name, source, replaces, path) in meta.items():

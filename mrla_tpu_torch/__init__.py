@@ -6,17 +6,45 @@ tensors, as the JAX package's do.  Entry points run on ``device="cuda"``
 unless the caller passes ``device="cpu"``, and raise when no card is
 present.
 
-Ported so far: the resnet_mrlal serving path (ops, MRLA-light layers, the
-model, the BN-folded engine) with its three hand-written kernels, the MRLA
-block epilogue, the mega-tail and the stage kernel of the ``use_stage4``
-route; and the DeiT / DeiT-MRLA-light serving path (models, the cast-once
-engine) with the token-tail kernel (``kernels/``, sources in ``csrc/``);
-and two-stage detection serving (``detect/``, ``serving/detect.py``:
-Faster / Mask R-CNN on the MRLA backbone + FPN) with the RoIAlign kernel.
+Ported so far, each path with hand-written CUDA kernels (``kernels/``,
+sources in ``csrc/``) for every TPU kernel it runs:
+
+  * resnet_mrlal serving (ops, MRLA-light layers, the model, the BN-folded
+    engine ``serving/resnet_mrlal.py``) with the MRLA block epilogue and the
+    mega-tail, and the ``use_stage4`` route with the stage kernel;
+  * its tail routes (``serving/tail_routes.py``), the counterpart of the JAX
+    package's in-model tail harness, with the block tail from z, the HWBC
+    block tail, the row tail and the HWBC copy;
+  * DeiT / DeiT-MRLA-light serving (models, the cast-once engine) with the
+    token-tail kernel;
+  * two-stage detection serving (``detect/``, ``serving/detect.py``: Faster
+    / Mask R-CNN on the MRLA backbone + FPN) with the RoIAlign kernel;
+  * two-stage detection training (``detect/train_cli.py``, the synthetic
+    source in ``data/``) with the RoIAlign backward kernel.
+
+:func:`entry` is the package's counterpart of the repository's
+``__graft_entry__.entry()``.
 """
 
-from mrla_tpu_torch import ckpt, detect, kernels, models, nn, ops, serving
+import torch
+
+from mrla_tpu_torch import ckpt, data, detect, kernels, models, nn, ops, serving
 from mrla_tpu_torch._device import resolve_device
 
-__all__ = ["ckpt", "detect", "kernels", "models", "nn", "ops", "resolve_device",
-           "serving"]
+
+def entry(device="cuda"):
+    """``(fn, example_args)``: ``fn(*example_args)`` is a resnet50_mrlal
+    serving forward in bf16 on ``device`` (the card unless the caller asks
+    for the CPU), from seed-0 weights, on 8 zero images at 224 px, returning
+    logits [8, 1000] fp32."""
+    model = models.create_model("resnet50_mrlal", device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    params = serving.prepare_inference_params(model, dtype=torch.bfloat16,
+                                              device=device)
+    x = torch.zeros(8, 224, 224, 3, dtype=torch.bfloat16,
+                    device=resolve_device(device))
+    return serving.resnet_mrlal_forward, (params, x)
+
+
+__all__ = ["ckpt", "data", "detect", "entry", "kernels", "models", "nn",
+           "ops", "resolve_device", "serving"]

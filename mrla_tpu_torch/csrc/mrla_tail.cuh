@@ -1,5 +1,6 @@
-// The MRLA-light block tail, shared by the epilogue, mega-tail and stage-4
-// kernels; mrla_tail_y8 computes it for 8 channels of one bf16 pixel:
+// The MRLA-light block tail, shared by the epilogue, mega-tail, block-tail,
+// row-tail and stage-4 kernels; mrla_tail_y8 computes it for 8 channels of
+// one bf16 pixel (mrla_block_tail_y8 from z, with out = relu(z + id)):
 //
 //     y = out + (dwconv3x3(out) * gate + lam * id) * scale + bias
 //
@@ -56,28 +57,41 @@ __device__ __forceinline__ float mrla_tail_combine(float o, float acc, float g,
   return o + (acc * g + lam * id) * sc + bi;
 }
 
-// y for channels c0..c0+7 of pixel p = (b * H + h) * W + w, packed as bf16x8.
-__device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
-                                              int c0) {
-  const int w = (int)(p % a.W);
-  const int64_t bh = p / a.W;
-  const int h = (int)(bh % a.H);
-  const int64_t img = (bh / a.H) * a.H;  // first row of this image
+// The depthwise 3x3 sum `acc` of x around pixel p = (b * H + h) * W + w and
+// x at p itself (`o`), for channels c0..c0+7.  x is `src`, or with
+// kResidual relu(src + id): the block's pre-residual map z and its identity
+// are read at every tap and summed in fp32, and that x is never rounded.
+template <bool kResidual>
+__device__ __forceinline__ void tail_taps8(const __nv_bfloat16* src,
+                                           const __nv_bfloat16* id,
+                                           const float* wv, int H, int W,
+                                           int C, int64_t p, int c0,
+                                           float acc[8], float o[8]) {
+  const int w = (int)(p % W);
+  const int64_t bh = p / W;
+  const int h = (int)(bh % H);
+  const int64_t img = (bh / H) * H;  // first row of this image
 
-  float acc[8], x[8], o[8], t[8];
+  float x[8], t[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = o[i] = 0.f;
 #pragma unroll
   for (int dh = -1; dh <= 1; ++dh) {
     const int hh = h + dh;
-    if (hh < 0 || hh >= a.H) continue;
+    if (hh < 0 || hh >= H) continue;
 #pragma unroll
     for (int dw = -1; dw <= 1; ++dw) {
       const int ww = w + dw;
-      if (ww < 0 || ww >= a.W) continue;
-      const int64_t q = ((img + hh) * a.W + ww) * a.C + c0;
-      bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(a.out + q)), x);
-      load_f8(a.wv + ((dh + 1) * 3 + (dw + 1)) * a.C + c0, t);
+      if (ww < 0 || ww >= W) continue;
+      const int64_t q = ((img + hh) * W + ww) * C + c0;
+      bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(src + q)), x);
+      if constexpr (kResidual) {
+        float r[8];
+        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(id + q)), r);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = fmaxf(x[i] + r[i], 0.f);
+      }
+      load_f8(wv + ((dh + 1) * 3 + (dw + 1)) * C + c0, t);
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i] = fmaf(x[i], t[i], acc[i]);
       if (dh == 0 && dw == 0) {
@@ -86,10 +100,22 @@ __device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
       }
     }
   }
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float y[8]) {
+  return make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]),
+                    pack_bf16x2(y[4], y[5]), pack_bf16x2(y[6], y[7]));
+}
+
+// y from the taps of pixel p, channels c0..c0+7, packed as bf16x8.
+__device__ __forceinline__ uint4 mrla_tail_finish8(const TailArgs& a,
+                                                   int64_t p, int c0,
+                                                   const float acc[8],
+                                                   const float o[8]) {
   const int64_t self = p * a.C + c0;
   float idv[8], g[8], lam[8], sc[8], bi[8];
   bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(a.id + self)), idv);
-  load_f8(a.gate + (bh / a.H) * a.C + c0, g);
+  load_f8(a.gate + (p / ((int64_t)a.H * a.W)) * a.C + c0, g);
   load_f8(a.lam + c0, lam);
   load_f8(a.scale + c0, sc);
   load_f8(a.bias + c0, bi);
@@ -97,6 +123,22 @@ __device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     y[i] = mrla_tail_combine(o[i], acc[i], g[i], lam[i], idv[i], sc[i], bi[i]);
-  return make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]),
-                    pack_bf16x2(y[4], y[5]), pack_bf16x2(y[6], y[7]));
+  return pack_bf16x8(y);
+}
+
+// y for channels c0..c0+7 of pixel p, packed as bf16x8.
+__device__ __forceinline__ uint4 mrla_tail_y8(const TailArgs& a, int64_t p,
+                                              int c0) {
+  float acc[8], o[8];
+  tail_taps8<false>(a.out, nullptr, a.wv, a.H, a.W, a.C, p, c0, acc, o);
+  return mrla_tail_finish8(a, p, c0, acc, o);
+}
+
+// The block tail from z: the same y with out = relu(z + id) formed in fp32
+// at every tap (a.out holds z), unrounded in the taps and the residual.
+__device__ __forceinline__ uint4 mrla_block_tail_y8(const TailArgs& a,
+                                                    int64_t p, int c0) {
+  float acc[8], o[8];
+  tail_taps8<true>(a.out, a.id, a.wv, a.H, a.W, a.C, p, c0, acc, o);
+  return mrla_tail_finish8(a, p, c0, acc, o);
 }

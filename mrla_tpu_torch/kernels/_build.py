@@ -55,6 +55,13 @@ SIGNATURES = {
     "roi_align_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 6 + [_P],
     # grad0..grad3, (H, W) of 4 levels, L, geom, g, B, P, C, O, smax, stream
     "roi_align_bwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 5 + [_P],
+    # z, id, gate, wv, lam, scale, bias, y, B, H, W, C, stream
+    "mrla_block_tail_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # out, id, gs, wv, ls, bias, w1, b1, y, x1, B, H, W, C, C1, stream
+    # (C1 = 0: y alone, w1 / b1 / x1 null)
+    "mrla_rowtail_bf16": [_P] * 10 + [_I] * 5 + [_P],
+    # x, y, B, H, W, C, stream
+    "hwbc_copy_bf16": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 

@@ -21,6 +21,14 @@ tensors; any other input raises.  The kernel takes C % 8 == 0; its C entry
 point returns cudaErrorInvalidValue (1) otherwise, and the wrapper raises.
 ``fused_epilogue.counter`` counts calls
 and kernel launches, the launches also by (B, H, W, C).
+
+The block tail from the pre-residual map z (``csrc/mrla_block_tail.cu``,
+the counterpart of the JAX package's ``mrla_block_tail_pallas``) is the
+same tail with ``out = relu(z + identity)`` formed in fp32 inside the
+kernel, never stored and never rounded: the taps and the residual use that
+fp32 value, while the gate (``mrla_block_tail``) comes from the sum rounded
+once to the activation dtype, as in the JAX package.  ``fused_block_tail``
+is that kernel given the gate, with the same rules and its own counter.
 """
 
 from __future__ import annotations
@@ -94,42 +102,57 @@ def use_plain_version(out: torch.Tensor) -> bool:
     return False
 
 
+def _tail_fp32(o, idf, gate, wv, lam, bn_scale, bn_bias) -> torch.Tensor:
+    """The tail on fp32 ``o`` and identity ``idf``, unrounded."""
+    c = o.shape[-1]
+    v = depthwise_conv3x3(o, wv.float().t().reshape(c, 1, 3, 3))
+    mrla = v * gate[:, None, None, :] + lam.float() * idf
+    return o + mrla * bn_scale.float() + bn_bias.float()
+
+
 def fused_epilogue_reference(out, identity, gate, wv, lam, bn_scale,
                              bn_bias) -> torch.Tensor:
     """Plain PyTorch version of the kernel (fp32 taps, one rounding of y)."""
-    c = out.shape[-1]
-    o = out.float()
-    v = depthwise_conv3x3(o, wv.float().t().reshape(c, 1, 3, 3))
-    mrla = v * gate[:, None, None, :] + lam.float() * identity.float()
-    y = o + mrla * bn_scale.float() + bn_bias.float()
+    y = _tail_fp32(out.float(), identity.float(), gate, wv, lam, bn_scale,
+                   bn_bias)
     return y.to(out.dtype)
+
+
+def _run_tail_kernel(entry: str, reference, counter: LaunchCounter, x,
+                     identity, gate, wv, lam, bn_scale,
+                     bn_bias) -> torch.Tensor:
+    """Shared by the epilogue and block-tail wrappers: the C entry point
+    ``entry`` on CUDA tensors, its launch counted on ``counter`` by
+    (B, H, W, C); ``reference`` for CPU tensors."""
+    check_tail_args(x, identity, gate, wv, lam, bn_scale, bn_bias)
+    if use_plain_version(x):
+        return reference(x, identity, gate, wv, lam, bn_scale, bn_bias)
+    b, h, w, c = x.shape
+    check_cuda_args(
+        {"input": x, "identity": identity},
+        {"gate": gate, "wv": wv, "lam": lam, "bn_scale": bn_scale,
+         "bn_bias": bn_bias},
+    )
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = getattr(library(), entry)(
+            x.data_ptr(), identity.data_ptr(), gate.data_ptr(),
+            wv.data_ptr(), lam.data_ptr(), bn_scale.data_ptr(),
+            bn_bias.data_ptr(), y.data_ptr(), b, h, w, c,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, f"{entry} (C={c})")
+    counter.launch((b, h, w, c))
+    return y
 
 
 def fused_epilogue(out, identity, gate, wv, lam, bn_scale,
                    bn_bias) -> torch.Tensor:
     """The epilogue kernel given the gate: y [B, H, W, C] like ``out``."""
     fused_epilogue.counter.calls += 1
-    check_tail_args(out, identity, gate, wv, lam, bn_scale, bn_bias)
-    if use_plain_version(out):
-        return fused_epilogue_reference(out, identity, gate, wv, lam,
-                                        bn_scale, bn_bias)
-    b, h, w, c = out.shape
-    check_cuda_args(
-        {"out": out, "identity": identity},
-        {"gate": gate, "wv": wv, "lam": lam, "bn_scale": bn_scale,
-         "bn_bias": bn_bias},
-    )
-    y = torch.empty_like(out)
-    with torch.cuda.device(out.device):
-        err = library().mrla_epilogue_bf16(
-            out.data_ptr(), identity.data_ptr(), gate.data_ptr(),
-            wv.data_ptr(), lam.data_ptr(), bn_scale.data_ptr(),
-            bn_bias.data_ptr(), y.data_ptr(), b, h, w, c,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check(err, f"mrla_epilogue_bf16 (C={c})")
-    fused_epilogue.counter.launch((b, h, w, c))
-    return y
+    return _run_tail_kernel("mrla_epilogue_bf16", fused_epilogue_reference,
+                            fused_epilogue.counter, out, identity, gate, wv,
+                            lam, bn_scale, bn_bias)
 
 
 fused_epilogue.counter = LaunchCounter()
@@ -149,3 +172,48 @@ def mrla_light_epilogue(out, identity, wq, wk, wv, lam, bn_scale, bn_bias,
     JAX package's ``mrla_light_epilogue_pallas``)."""
     gate = mrla_light_gate(out, wq, wk, heads)
     return fused_epilogue(out, identity, gate, wv, lam, bn_scale, bn_bias)
+
+
+def fused_block_tail_reference(z, identity, gate, wv, lam, bn_scale,
+                               bn_bias) -> torch.Tensor:
+    """Plain version of the block-tail kernel: relu(z + identity) in fp32,
+    unrounded, through the taps and the residual; one rounding of y."""
+    idf = identity.float()
+    y = _tail_fp32(torch.relu(z.float() + idf), idf, gate, wv, lam, bn_scale,
+                   bn_bias)
+    return y.to(z.dtype)
+
+
+def run_block_tail(counter: LaunchCounter, z, identity, gate, wv, lam,
+                   bn_scale, bn_bias) -> torch.Tensor:
+    """The block-tail kernel given the gate, its launch counted on
+    ``counter``; the plain version for CPU tensors.  Shared by
+    ``fused_block_tail`` and ``mrla_block_tail_hwbc``."""
+    return _run_tail_kernel("mrla_block_tail_bf16", fused_block_tail_reference,
+                            counter, z, identity, gate, wv, lam, bn_scale,
+                            bn_bias)
+
+
+def fused_block_tail(z, identity, gate, wv, lam, bn_scale,
+                     bn_bias) -> torch.Tensor:
+    """The block-tail kernel given the gate: y [B, H, W, C] like ``z``."""
+    fused_block_tail.counter.calls += 1
+    return run_block_tail(fused_block_tail.counter, z, identity, gate, wv,
+                          lam, bn_scale, bn_bias)
+
+
+fused_block_tail.counter = LaunchCounter()
+
+
+def block_tail_gate(z, identity, wq, wk, heads: int) -> torch.Tensor:
+    """The gate of relu(z + identity), the sum rounded once to z's dtype."""
+    return mrla_light_gate((z + identity).relu_(), wq, wk, heads)
+
+
+def mrla_block_tail(z, identity, wq, wk, wv, lam, bn_scale, bn_bias,
+                    heads: int) -> torch.Tensor:
+    """The block tail from z: gate in PyTorch, then the kernel (counterpart
+    of the JAX package's ``mrla_block_tail_pallas``, without its W % 8 and
+    C % 128 gates: any B, H, W and C % 8 == 0)."""
+    gate = block_tail_gate(z, identity, wq, wk, heads)
+    return fused_block_tail(z, identity, gate, wv, lam, bn_scale, bn_bias)

@@ -12,8 +12,10 @@ from mrla_tpu_torch.serving.resnet_mrlal import (
     prepare_inference_params,
     resnet_mrlal_forward,
 )
+from mrla_tpu_torch.serving.tail_routes import resnet_mrlal_tail_forward
 
 __all__ = ["attach_stage4", "deit_forward", "detect_forward",
            "prepare_deit_inference_params", "prepare_detect_params",
            "prepare_inference_params", "resnet_mrlal_forward",
+           "resnet_mrlal_tail_forward",
            "two_stage_detections"]

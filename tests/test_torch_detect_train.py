@@ -401,20 +401,21 @@ def test_coco_eval_matches_jax():
 
 
 def test_trainer_runs_on_cpu_and_writes_its_log(tmp_path):
+    # batch 1: two steps and a one-image evaluation
     out = train_cli.main([
         "--device", "cpu", "--preset", "mask_rcnn_r50mrlal_fpn_1x_coco",
         "--backbone-layers", "1", "1", "1", "1", "--img-size", "128",
-        "--num-classes", "3", "--max-gt", "4", "--batch-size", "2",
-        "--epochs", "1", "--steps-per-epoch", "3", "--eval-steps", "1",
+        "--num-classes", "3", "--max-gt", "4", "--batch-size", "1",
+        "--epochs", "1", "--steps-per-epoch", "2", "--eval-steps", "1",
         "--rpn-proposals", "100", "--rcnn-samples", "64",
         "--output-dir", str(tmp_path)])
     lines = [json.loads(s) for s in open(tmp_path / "log.jsonl")]
-    assert len(lines) == 1 and lines[0]["step"] == 3
+    assert len(lines) == 1 and lines[0]["step"] == 2
     for k in ("loss", "loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
               "loss_bbox", "loss_mask"):
         assert np.isfinite(lines[0][k]), k
     assert 0.0 <= lines[0]["mAP"] <= 1.0 and "mask_mAP" in lines[0]
-    assert len(out["step_s"]) == 3
+    assert len(out["step_s"]) == 2
 
 
 def test_trainer_needs_a_card_unless_asked(tmp_path):

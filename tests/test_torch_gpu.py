@@ -508,3 +508,188 @@ def test_detection_training_step_on_the_card(cuda):
     assert torch.count_nonzero(want_g[0]) > 0  # small rois: mostly P2
     for g, w in zip(got_g, want_g):
         assert (g.cpu() - w).norm() <= 1e-4 * w.norm()
+
+
+def _block_tail_case(gen, b, h, w, c):
+    a = _tail(gen, b, h, w, c)
+    z = (torch.randn(b, h, w, c, generator=gen, device="cuda")).bfloat16()
+    return dict(a, z=z)
+
+
+# small odd shapes (W = 7, H = 2, B = 3) and main-path widths at a small
+# batch
+@pytest.mark.parametrize("b,h,w,c", [(3, 2, 7, 64), (1, 5, 7, 256),
+                                     (2, 28, 28, 512), (3, 7, 7, 2048)])
+def test_block_tail_kernels_match_plain(cuda, b, h, w, c):
+    from mrla_tpu_torch.kernels import (
+        fused_block_tail,
+        fused_block_tail_reference,
+        mrla_block_tail,
+        mrla_block_tail_hwbc,
+    )
+
+    a = _block_tail_case(cuda, b, h, w, c)
+    args = (a["z"], a["identity"], a["gate"], a["wv"], a["lam"],
+            a["bn_scale"], a["bn_bias"])
+    fused_block_tail.counter.reset()
+    y = fused_block_tail(*args)
+    torch.cuda.synchronize()
+    assert fused_block_tail.counter.by_shape == {(b, h, w, c): 1}
+    _assert_ulps(y, fused_block_tail_reference(*args), 1)
+    # the two gated entry points launch the same kernel, each on its own
+    # counter, and agree with the plain version on the CPU
+    wq = torch.randn(5, generator=cuda, device="cuda") * 0.3
+    full = (a["z"], a["identity"], wq, wq, a["wv"], a["lam"], a["bn_scale"],
+            a["bn_bias"], c // 32)
+    mrla_block_tail_hwbc.counter.reset()
+    y_hwbc = mrla_block_tail_hwbc(*full)
+    y_block = mrla_block_tail(*full)
+    assert mrla_block_tail_hwbc.counter.by_shape == {(b, h, w, c): 1}
+    assert fused_block_tail.counter.by_shape == {(b, h, w, c): 2}
+    assert torch.equal(y_hwbc, y_block)
+    cpu = mrla_block_tail(*(t.cpu() if torch.is_tensor(t) else t
+                            for t in full))
+    _assert_ulps(y_block.cpu(), cpu, 1)
+
+
+def test_block_tail_entry_point_rejects_c_not_multiple_of_8(cuda):
+    from mrla_tpu_torch.kernels import fused_block_tail
+
+    a = _block_tail_case(cuda, 1, 4, 4, 12)
+    fused_block_tail.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        fused_block_tail(a["z"], a["identity"], a["gate"], a["wv"], a["lam"],
+                         a["bn_scale"], a["bn_bias"])
+    assert fused_block_tail.counter.launches == 0
+    torch.cuda.synchronize()
+
+
+# C1 = 64 and 512, H = 2, W = 7, B = 3; C = 2048 takes the 32-pixel tile;
+# C1 = 0 is y alone
+@pytest.mark.parametrize("b,h,w,c,c1", [(3, 2, 7, 256, 64),
+                                        (1, 5, 7, 1024, 512),
+                                        (3, 7, 7, 2048, 512),
+                                        (2, 14, 14, 1024, 256),
+                                        (3, 2, 7, 192, 0),
+                                        (3, 7, 7, 2048, 0)])
+def test_rowtail_kernel_matches_plain(cuda, b, h, w, c, c1):
+    from mrla_tpu_torch.kernels import mrla_rowtail, mrla_rowtail_reference
+
+    a = _tail(cuda, b, h, w, c)
+    args = (a["out"], a["identity"], a["gate"], a["wv"], a["lam"],
+            a["bn_scale"], a["bn_bias"])
+    w1 = (torch.randn(c1, c, 1, 1, generator=cuda, device="cuda")
+          / c ** 0.5).bfloat16()
+    b1 = torch.randn(c1, generator=cuda, device="cuda") * 0.2
+    extra = (w1, b1) if c1 else ()
+    mrla_rowtail.counter.reset()
+    got = mrla_rowtail(*args, *extra)
+    torch.cuda.synchronize()
+    assert mrla_rowtail.counter.by_shape == {(b, h, w, c, c1): 1}
+    want = mrla_rowtail_reference(*args, *extra)
+    if c1:
+        _assert_ulps(got[0], want[0], 1)
+        _assert_ulps(got[1], want[1], 2)
+        assert got[1].shape == (b, h, w, c1)
+    else:
+        _assert_ulps(got, want, 1)
+
+
+# the C entry point refuses these with cudaErrorInvalidValue (1), as
+# rowtail_covers states: C % 64 with x1, C1 % 64, a tile beyond 227 KB
+@pytest.mark.parametrize("c,c1", [(96, 64), (256, 96), (4096, 512)])
+def test_rowtail_entry_point_agrees_with_rowtail_covers(cuda, c, c1):
+    from mrla_tpu_torch.kernels import mrla_rowtail, rowtail_covers
+
+    assert not rowtail_covers(c, c1)
+    a = _tail(cuda, 1, 2, 3, c)
+    w1 = torch.zeros(c1, c, device="cuda", dtype=torch.bfloat16)
+    b1 = torch.zeros(c1, device="cuda")
+    mrla_rowtail.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        mrla_rowtail(a["out"], a["identity"], a["gate"], a["wv"], a["lam"],
+                     a["bn_scale"], a["bn_bias"], w1, b1)
+    assert mrla_rowtail.counter.launches == 0
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError, match="bfloat16"):
+        mrla_rowtail(a["out"].float(), a["identity"].float(), a["gate"],
+                     a["wv"], a["lam"], a["bn_scale"], a["bn_bias"])
+
+
+@pytest.mark.parametrize("b,h,w,c", [(3, 2, 7, 64), (3, 56, 56, 256)])
+def test_hwbc_copy_kernel_is_a_new_equal_tensor(cuda, b, h, w, c):
+    from mrla_tpu_torch.kernels import hwbc_copy
+
+    x = torch.randn(b, h, w, c, generator=cuda, device="cuda").bfloat16()
+    hwbc_copy.counter.reset()
+    y = hwbc_copy(x)
+    torch.cuda.synchronize()
+    assert hwbc_copy.counter.by_shape == {(b, h, w, c): 1}
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+    x.zero_()
+    assert not torch.equal(y, x)
+
+
+def test_hwbc_copy_entry_point_rejects_c_not_multiple_of_8(cuda):
+    from mrla_tpu_torch.kernels import hwbc_copy
+
+    x = torch.zeros(2, 3, 3, 12, device="cuda", dtype=torch.bfloat16)
+    hwbc_copy.counter.reset()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        hwbc_copy(x)
+    assert hwbc_copy.counter.launches == 0
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError, match="bfloat16"):
+        hwbc_copy(x.float())
+
+
+def test_tail_routes_launch_their_kernels(cuda):
+    """112 px, layers (2, 2, 1, 1): each route's launches by shape, finite
+    logits near the fp32 CPU engine's, and the copy route bitwise equal to
+    the block-tail route."""
+    from mrla_tpu_torch.kernels import (
+        fused_block_tail,
+        hwbc_copy,
+        mrla_block_tail_hwbc,
+        mrla_rowtail,
+    )
+    from mrla_tpu_torch.models.resnet_mrla_light import ResNetMRLALight
+    from mrla_tpu_torch.serving import resnet_mrlal_tail_forward
+
+    layers = (2, 2, 1, 1)
+    model = ResNetMRLALight(list(layers), num_classes=10,
+                            generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.1, 0.5)
+    x = torch.randn(3, 112, 112, 3, generator=torch.Generator().manual_seed(1))
+    want = resnet_mrlal_forward(
+        prepare_inference_params(model, layers, torch.float32, "cpu"), x,
+        layers)
+    params = prepare_inference_params(model, layers, torch.bfloat16, "cuda")
+    counters = (fused_block_tail.counter, mrla_block_tail_hwbc.counter,
+                mrla_rowtail.counter, hwbc_copy.counter)
+    expect = {
+        "rowtail": [{}, {}, {(3, 28, 28, 256, 64): 1,
+                             (3, 28, 28, 256, 128): 1,
+                             (3, 14, 14, 512, 128): 1,
+                             (3, 14, 14, 512, 256): 1,
+                             (3, 7, 7, 1024, 512): 1,
+                             (3, 4, 4, 2048, 0): 1}, {}],
+        "block_tail": [{(3, 14, 14, 512): 2, (3, 7, 7, 1024): 1,
+                        (3, 4, 4, 2048): 1}, {(3, 28, 28, 256): 2}, {}, {}],
+    }
+    # copies after the first three blocks
+    expect["copy"] = expect["block_tail"][:3] + [{(3, 28, 28, 256): 2,
+                                                  (3, 14, 14, 512): 1}]
+    logits = {}
+    for tail, want_counts in expect.items():
+        for c in counters:
+            c.reset()
+        logits[tail] = resnet_mrlal_tail_forward(params, x.cuda(), tail,
+                                                 layers).cpu()
+        assert [dict(c.by_shape) for c in counters] == want_counts, tail
+        assert torch.isfinite(logits[tail]).all()
+        assert torch.equal(logits[tail].argmax(-1), want.argmax(-1)), tail
+    assert torch.equal(logits["copy"], logits["block_tail"])

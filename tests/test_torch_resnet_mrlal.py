@@ -171,3 +171,22 @@ def test_port_init_matches_the_jax_init_recipe():
     assert wq.shape == (1, 1, 5) and wq.abs().max() <= 1 / 5 ** 0.5
     wv = blk.mrla.mrla.Wv.weight  # kaiming normal, fan_out = 1024 * 9
     assert abs(wv.std().item() / (2 / (1024 * 9)) ** 0.5 - 1) < 0.05
+
+
+def test_entry_serves_resnet50_mrlal_in_bf16():
+    import mrla_tpu_torch
+
+    fn, (params, x) = mrla_tpu_torch.entry(device="cpu")
+    assert x.shape == (8, 224, 224, 3) and x.dtype == torch.bfloat16
+    assert params["stem"]["k"].dtype == torch.bfloat16
+    logits = fn(params, x[:2, :64, :64])  # a smaller view on the CPU
+    assert logits.shape == (2, 1000) and torch.isfinite(logits).all()
+
+
+def test_entry_needs_a_card_unless_asked():
+    import mrla_tpu_torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mrla_tpu_torch.entry()

@@ -123,7 +123,10 @@ def test_autograd_of_plain_forward_agrees():
 
 
 def test_invalid_rois_contribute_nothing():
-    feats, rois, valid, ct = _case(40)
+    # 12 rois a image, 5 of them invalid, at C = 16: four plain backward
+    # passes stay cheap, and the check needs no width
+    feats, rois, valid, ct = _case(40, p=12, c=16)
+    assert (~valid).any() and valid[0].any()
     geom, smax = roi_geometry(torch.from_numpy(rois),
                               torch.from_numpy(valid), SIZES, STRIDES, 7, 0)
     base = roi_align_backward_reference(torch.from_numpy(ct), geom, SIZES, 7,
