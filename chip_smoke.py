@@ -19,8 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      with ot doubled; the block tail from z (the HWBC block tail's kernel
      too), the row tail and the copy at every shape the tail routes give
      them and at the JAX package's test shapes (the row tail with and
-     without x1; the copy held bitwise, a new tensor, timed beside
-     x.clone());
+     without x1; the copy held bitwise, a new tensor, and timed in turns
+     with x.clone()); at each mega-tail and row-tail shape also, as
+     diagnostics, the row tail's y alone, the product alone as one PyTorch
+     expression, and the launch's tile, blocks an SM and waves;
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
@@ -294,6 +296,51 @@ def ulp_tol(ref: torch.Tensor, ulps: int) -> float:
     return ulps * 2.0 ** -7 * ref.abs().max().item()
 
 
+def tail_x1_diagnostics(lib, kind: str, a: dict, w1, b1, shape) -> dict:
+    """What sets the time of a tail + next-conv1 kernel ("megatail" or
+    "rowtail", csrc/tail_x1.cuh) at ``shape`` (B, H, W, C, C1): the row
+    tail's y alone (its C1 = 0 kernel) on the same map; the product alone,
+    relu(y @ W1^T + b1) in bf16 on the same [P, C] x [C, C1] as one PyTorch
+    expression (a diagnostic: the port never calls it, and it is not the
+    kernel's function); and the launch's tile, its blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and waves."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check
+    from mrla_tpu_torch.kernels.mrla_rowtail import _fold
+
+    b, h, w, c, c1 = shape
+    gs, ls = _fold(a["gate"], a["lam"], a["bn_scale"])
+    y = torch.empty_like(a["out"])
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [a["out"].data_ptr(), a["identity"].data_ptr(), gs.data_ptr(),
+            a["wv"].data_ptr(), ls.data_ptr(), a["bn_bias"].data_ptr()]
+    y_only_ms = cuda_ms(lambda: lib.mrla_rowtail_bf16(
+        *ptrs, None, None, y.data_ptr(), None, b, h, w, c, 0, stream))
+    y2d, b1h = a["out"].reshape(-1, c), b1.bfloat16()
+    product_ms = cuda_ms(lambda: torch.relu(y2d @ w1.t() + b1h))
+    out = (ctypes.c_int * 6)()
+    check(getattr(lib, f"mrla_{kind}_describe")(c, c1, ctypes.addressof(out)),
+          f"mrla_{kind}_describe (C={c}, C1={c1})")
+    per_sm, pixels, cols, stages, depth, smem = out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-b * h * w // pixels)
+    return dict(y_only_ms=y_only_ms, product_ms=product_ms,
+                blocks_per_sm=per_sm, blocks=blocks,
+                waves=blocks / (per_sm * sms),
+                tile=dict(pixels=pixels, columns=cols, ring_stages=stages,
+                          k_depth=depth, smem_bytes=smem))
+
+
+def diagnostics_text(d: dict) -> str:
+    t = d["tile"]
+    return (f"y alone {d['y_only_ms']:.4f} ms, product alone (torch, "
+            f"diagnostic) {d['product_ms']:.4f} ms; tile {t['pixels']} px x "
+            f"{t['columns']} cols, {t['ring_stages']} x {t['k_depth']}-deep "
+            f"ring, {t['smem_bytes']} B; {d['blocks_per_sm']} blocks an SM, "
+            f"{d['blocks']} blocks, {d['waves']:.2f} waves")
+
+
 def check_kernels(lib):
     from mrla_tpu_torch.kernels import (
         fused_epilogue,
@@ -359,16 +406,17 @@ def check_kernels(lib):
         nbytes = (3 * n * 2 + p * c1 * 2 + c * c1 * 2 + c1 * 4
                   + b * c * 4 + 12 * c * 4)
         bound_ms, by = bound(nbytes, 2 * p * c * c1, TAIL_FP32_OPS * n)
+        diag = tail_x1_diagnostics(lib, "megatail", a, w1, b1, shape)
         rows["megatail"][shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}] C1={c1}",
             max_abs_err=max(err_y, err_x1), tol=min(tol_y, tol_x1), ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, **diag)
         print(f"megatail {stage} [{b},{h},{w},{c}] C1={c1} bf16: "
               f"max|Δy| {err_y:.3g} (tol {tol_y:.3g}: 1 bf16 ulp at max|y|), "
               f"max|Δx1| {err_x1:.3g} (tol {tol_x1:.3g}: 2 bf16 ulps at "
               f"max|x1|, its own rounding plus y's one-ulp flips) | kernel "
               f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms")
+              f"{plain_ms:.4f} ms | {diagnostics_text(diag)}")
         if not (err_y <= tol_y and err_x1 <= tol_x1):
             raise AssertionError(f"megatail {stage}: y {err_y} > {tol_y} or "
                                  f"x1 {err_x1} > {tol_x1}")
@@ -470,15 +518,18 @@ def check_rowtail(lib, gen):
         nbytes = (3 * n * 2 + p * c1 * 2 + c * c1 * 2 + c1 * 4 + b * c * 4
                   + 11 * c * 4)
         bound_ms, by = bound(nbytes, 2 * p * c * c1, TAIL_FP32_OPS * n)
+        diag = (tail_x1_diagnostics(lib, "rowtail", a, w1, b1, shape)
+                if c1 else {})
         rows[shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}] C1={c1}",
             max_abs_err=max(err_y, err_x1), tol=min(tol_y, tol_x1), ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, **diag)
         print(f"row tail {stage} [{b},{h},{w},{c}] C1={c1} bf16: max|Δy| "
               f"{err_y:.3g} (tol {tol_y:.3g}: 1 bf16 ulp at max|y|), "
               f"max|Δx1| {err_x1:.3g} (tol {tol_x1:.3g}: 2 bf16 ulps at "
               f"max|x1|) | kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({by}), plain {plain_ms:.4f} ms")
+              f"({by}), plain {plain_ms:.4f} ms"
+              + (f" | {diagnostics_text(diag)}" if diag else ""))
         if not (err_y <= tol_y and err_x1 <= tol_x1):
             raise AssertionError(f"row tail {shape}: y {err_y} > {tol_y} or "
                                  f"x1 {err_x1} > {tol_x1}")
@@ -488,36 +539,52 @@ def check_rowtail(lib, gen):
 
 def check_copy(lib, gen):
     """The copy kernel held bitwise to its input at the copy route's shape
-    and odd ones, a new tensor each time; timed beside x.clone()."""
+    and odd ones, a new tensor each time, through the wrapper and through
+    its C entry point over a NaN-filled buffer; the kernel and x.clone()
+    timed in turns: clone, kernel, kernel, clone, each reading the mean of
+    100 launches after 20 (they differ by tenths of a percent).  ms is the
+    kernel's two readings' mean, library_ms the clones'."""
     from mrla_tpu_torch.kernels import hwbc_copy, hwbc_copy_reference
+    from mrla_tpu_torch.kernels._build import check
 
     rows = {}
     shapes = dict(COPY_SHAPES)
     shapes.update({s: ("odd", 0) for s in COPY_EXTRA_SHAPES})
+    stream = torch.cuda.current_stream().cuda_stream
     for shape, (stage, _) in shapes.items():
         b, h, w, c = shape
         x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         y = hwbc_copy(x)
-        same = torch.equal(y, x) and y.data_ptr() != x.data_ptr()
-        stream = torch.cuda.current_stream().cuda_stream
-        ms = cuda_ms(lambda: lib.hwbc_copy_bf16(x.data_ptr(), y.data_ptr(),
-                                                b, h, w, c, stream))
+        z = torch.full_like(x, float("nan"))
+        launch = lambda: lib.hwbc_copy_bf16(x.data_ptr(), z.data_ptr(), b, h,
+                                            w, c, stream)
+        check(launch(), "hwbc_copy_bf16")
+        torch.cuda.synchronize()
+        same = (torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+                and torch.equal(z, x))
+        ms_of = lambda fn: cuda_ms(fn, iters=100, warmup=20)
+        turns = [ms_of(lambda: x.clone()), ms_of(launch), ms_of(launch),
+                 ms_of(lambda: x.clone())]
+        clone, kernel = turns[::3], turns[1:3]
+        ms = sum(kernel) / 2
+        library_ms = sum(clone) / 2
         plain_ms = cuda_ms(lambda: hwbc_copy_reference(x), iters=5)
-        library_ms = cuda_ms(lambda: x.clone())
         n = b * h * w * c
         bound_ms, by = bound(4 * n, 0, 0)
         rows[shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=0.0 if same else
             (y.float() - x.float()).abs().max().item(), tol=0.0, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-            library_ms=library_ms)
+            library_ms=library_ms, clone_ms=clone, kernel_ms=kernel)
         print(f"copy {stage} [{b},{h},{w},{c}] bf16: "
-              f"{'bitwise equal, a new tensor' if same else 'DIFFERS'} | "
-              f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms, x.clone() {library_ms:.4f} ms")
+              f"{'bitwise equal, a new tensor' if same else 'DIFFERS'} (the "
+              f"wrapper and the entry point) | kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms, x.clone() "
+              f"{library_ms:.4f} ms | in turns: "
+              + ", ".join(f"{t:.4f}" for t in turns) + " ms")
         if not same:
             raise AssertionError(f"copy {shape}: not a new equal tensor")
-        del x, y
+        del x, y, z
     return rows
 
 

@@ -20,26 +20,50 @@
 // 0.050 ms at 3.35 TB/s, while the product, 13.2 GFLOP, takes 0.013 ms at
 // the bf16 tensor-core peak.
 //
-// Design: tail_x1.cuh's kernel, the mega-tail's, with the row tail's y, for
-// every (C, C1) the resnet50 tail routes give it, up to C = 2048 with C1 =
-// 512, which the mega-tail's one-chunk tile cannot hold (a 64-pixel y tile
-// and a whole C1 of W1 rows: 337 KB there).  Here a block holds 64 pixels
-// for C <= 512 and 32 above, and computes x1 in chunks of 128 columns (64
-// where C1 is no multiple of 128): 84 KB of shared memory at C = 1024, so
-// two blocks share an SM (a 64-pixel tile, one a SM, took 1.8 to 1.9x as
-// long there), and 147 KB at C = 2048.  Without W1 (C1 = 0) an elementwise
-// kernel writes y.
+// Design: tail_x1.cuh's kernel, the mega-tail's, with the row tail's y,
+// for every (C, C1) the resnet50 tail routes give it, up to C = 2048 with
+// C1 = 512, which no 64-pixel tile can hold (a 64-pixel y tile alone is
+// 256 KB there).  W1 comes through a 3-stage cp.async ring started before
+// the y phase.  Up to C = 1024 the tiles are the mega-tail's (64 pixels,
+// wgmma; at [128, 14, 14, 1024] 177 KB, one block an SM, 392 blocks, 3.0
+// waves, W1 read from L2 205 MB where a 32-pixel tile read 411).
+// Above, where C1 % 128 == 0 (C up to 2112): 48 pixels, three m16 tiles a
+// warp on mma.sync + ldmatrix, x1 in chunks of 128 columns, 32-deep K
+// chunks (three stages: 24 KB), 216 KB at C = 2048, one block an SM, so
+// that 131 blocks cover [128, 7, 7, 2048] in 0.99 waves (32-pixel tiles:
+// 196 blocks, 1.48 waves) and W1 is read from L2 275 MB, not 411; the y
+// phase two pixels at a time with the 3x3 weights in registers.  Any other
+// (C, C1) up to C = 3392: 32 pixels x 64 columns, 32-deep K chunks, y by
+// 8-channel vectors.  No thread-block cluster (see mrla_megatail.cu).
+// Without W1 (C1 = 0) an elementwise kernel writes y.
 #include "tail_x1.cuh"
 
 namespace {
 
-// Pixels per block and x1 columns per chunk; the wrapper's rowtail_covers
-// (kernels/mrla_rowtail.py) states the same rules.
-int tile_pixels(int C) { return C <= 512 ? 64 : 32; }
-int chunk_cols(int C1) { return C1 % 128 == 0 ? 128 : 64; }
+// The tiles above C = 1024 (see the note at the top).
+using Tile48x128 = X1Tile<1, 3, 2, 32, 1, 2, 0>;
+using Tile32x64k32 = X1Tile<2, 1, 2, 32, 1, 0, 0>;
 
-size_t smem_bytes(int C, int C1) {
-  return tail_x1_smem_bytes(C, tile_pixels(C), chunk_cols(C1));
+// f(Tile{}) for the tile of (C, C1), C1 % 64 == 0; the wrapper's
+// rowtail_tile (kernels/mrla_rowtail.py) states the same rule.
+template <class F>
+cudaError_t with_tile(int C, int C1, F&& f) {
+  if (C <= 1024) return tail_x1_with_tile(C, C1, f);
+  if (C1 % 128 == 0 && Tile48x128::smem_bytes(C) <= kMaxSmem)
+    return f(Tile48x128{});
+  return f(Tile32x64k32{});
+}
+
+// With x1: C % 64 == 0, C1 % 64 == 0 and the tile's shared memory within a
+// block's (C up to 3392): rowtail_covers in the wrapper.
+bool covers(int C, int C1) {
+  if (C <= 0 || C % 64 || C1 <= 0 || C1 % 64) return false;
+  size_t smem = 0;
+  with_tile(C, C1, [&](auto t) {
+    smem = decltype(t)::smem_bytes(C);
+    return cudaSuccess;
+  });
+  return smem <= kMaxSmem;
 }
 
 // y for channels c0..c0+7 of pixel p as bf16x8, summed in the JAX kernel's
@@ -58,8 +82,22 @@ struct RowTailY {
     float y[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      y[i] = o[i] + acc[i] * gs[i] + ls[i] * idv[i] + bi[i];
+      y[i] = combine(o[i], acc[i], gs[i], idv[i], ls[i], 0.f, bi[i]);
     return pack_bf16x8(y);
+  }
+  // the constants of channels c0..c0+7: ls, (none), bias
+  static __device__ __forceinline__ void consts(const TailArgs& a, int c0,
+                                                float ls[8], float unused[8],
+                                                float bi[8]) {
+    load_f8(a.lam + c0, ls);
+    load_f8(a.bias + c0, bi);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) unused[i] = 0.f;
+  }
+  static __device__ __forceinline__ float combine(float o, float acc,
+                                                  float gs, float id,
+                                                  float ls, float, float bi) {
+    return o + acc * gs + ls * id + bi;
   }
 };
 
@@ -78,17 +116,16 @@ __global__ void __launch_bounds__(kX1Threads)
 
 // out, id, y [B, H, W, C] bf16; gs [B, C], wv [9, C], ls, bias [C] fp32;
 // with C1 > 0 also w1 [C1, C] bf16, b1 [C1] fp32 and x1 [B, H, W, C1] bf16.
-// C1 == 0 (y only) takes C % 8 == 0; C1 > 0 takes C % 64 == 0, C1 % 64 ==
-// 0 and smem_bytes(C, C1) <= kMaxSmem (so C up to 3328 at any C1).
-// Anything else gives cudaErrorInvalidValue.
+// C1 == 0 (y only) takes C % 8 == 0; C1 > 0 takes what covers() does (C
+// up to 3392 at any C1 % 64 == 0).  Anything else gives
+// cudaErrorInvalidValue.
 extern "C" int mrla_rowtail_bf16(const void* out, const void* id,
                                  const void* gs, const void* wv,
                                  const void* ls, const void* bias,
                                  const void* w1, const void* b1, void* y,
                                  void* x1, int B, int H, int W, int C, int C1,
                                  void* stream) {
-  if (C <= 0 || C % 8 || C1 < 0) return (int)cudaErrorInvalidValue;
-  if (C1 > 0 && (C % kX1KC || C1 % 64 || smem_bytes(C, C1) > kMaxSmem))
+  if (C <= 0 || C % 8 || C1 < 0 || (C1 > 0 && !covers(C, C1)))
     return (int)cudaErrorInvalidValue;
   TailArgs a{static_cast<const __nv_bfloat16*>(out),
              static_cast<const __nv_bfloat16*>(id),
@@ -109,14 +146,16 @@ extern "C" int mrla_rowtail_bf16(const void* out, const void* id,
     }
     return (int)cudaGetLastError();
   }
-  // WM = BM / 16 warps along the pixels, NT = CN / ((8 / WM) x 8)
-  const bool c128 = chunk_cols(C1) == 128;
-  cudaError_t err;
-  if (tile_pixels(C) == 64)
-    err = c128 ? tail_x1_launch<RowTailY, 4, 8>(a, w1, b1, y, x1, P, C1, s)
-               : tail_x1_launch<RowTailY, 4, 4>(a, w1, b1, y, x1, P, C1, s);
-  else
-    err = c128 ? tail_x1_launch<RowTailY, 2, 4>(a, w1, b1, y, x1, P, C1, s)
-               : tail_x1_launch<RowTailY, 2, 2>(a, w1, b1, y, x1, P, C1, s);
-  return (int)err;
+  return (int)with_tile(C, C1, [&](auto t) {
+    return tail_x1_launch<RowTailY, decltype(t)>(a, w1, b1, y, x1, P, C1, s);
+  });
+}
+
+// The launch's tile at (C, C1 > 0) and the blocks an SM holds
+// (tail_x1_describe's six numbers).
+extern "C" int mrla_rowtail_describe(int C, int C1, int* out) {
+  if (!covers(C, C1)) return (int)cudaErrorInvalidValue;
+  return (int)with_tile(C, C1, [&](auto t) {
+    return tail_x1_describe<RowTailY, decltype(t)>(C, out);
+  });
 }

@@ -60,6 +60,7 @@
 // GEMM.  Eleven launches a call.
 #include <mutex>
 
+#include "hopper_async.cuh"
 #include "mrla_tail.cuh"
 
 namespace {
@@ -87,36 +88,6 @@ struct GemmArgs {
   int M, N, K;
   int Kt;                  // K per tap: K for a 1x1 product, K / 9 for the 3x3
 };
-
-// 16 bytes global -> shared, past L1.  With 0 source bytes (pred false) the
-// 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory operand of wgmma: a K-major tile of 128-byte rows in the
-// 128-byte swizzle (the 16-byte chunk c of row r sits at chunk c ^ (r & 7)),
-// 8-row groups 1024 bytes apart, the tile 1024-byte aligned.  A k16 step
-// moves the start address on by 32 bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(tile);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
 
 // d[64 x 128] += A[64 x 16] @ B[128 x 16]^T, both operands from shared
 // memory, asynchronously; d is this thread's 64 values of the warpgroup's
@@ -150,19 +121,6 @@ __device__ __forceinline__ void wgmma_64x128x16(float d[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));  // p: accumulate onto d
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Dynamic shared memory of a block: the ring (plus room to align it to 1024

@@ -42,6 +42,9 @@ SIGNATURES = {
     "mrla_epilogue_bf16": [_P] * 8 + [_I] * 4 + [_P],
     # out, id, gate, wv, lam, scale, bias, w1, b1, y, x1, B, H, W, C, C1, stream
     "mrla_megatail_bf16": [_P] * 11 + [_I] * 5 + [_P],
+    # C, C1, int[6] out: blocks an SM, pixels a block, x1 columns a chunk,
+    # ring stages, K chunk depth, shared memory bytes (the row tail's too)
+    "mrla_megatail_describe": [_I] * 2 + [_P],
     # ob, xs, xs strides (image, row, column), kd, k3_0, k1, k2, k3, bd, b3_0,
     # b1, b2, b3, wq, wk, wv, lam, scale, bias, f32, yb, x1o, y, B, CIN, C1, C,
     # heads, ktap, stream
@@ -60,6 +63,7 @@ SIGNATURES = {
     # out, id, gs, wv, ls, bias, w1, b1, y, x1, B, H, W, C, C1, stream
     # (C1 = 0: y alone, w1 / b1 / x1 null)
     "mrla_rowtail_bf16": [_P] * 10 + [_I] * 5 + [_P],
+    "mrla_rowtail_describe": [_I] * 2 + [_P],
     # x, y, B, H, W, C, stream
     "hwbc_copy_bf16": [_P] * 2 + [_I] * 4 + [_P],
 }

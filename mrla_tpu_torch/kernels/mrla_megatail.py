@@ -3,10 +3,13 @@
     y  = out + (dwconv3x3(out)·gate + λ·id)·bn_scale + bn_bias
     x1 = relu(bf16(y) @ W1 + b1)                 # next block's conv1
 
-One kernel (``csrc/mrla_megatail.cu``) computes both in one pass over the
-map and returns (y, x1), the counterpart of the JAX package's
-``mrla_block_tail_fused_next``.  ``out`` is relu(z + identity) and the gate
-comes from ``mrla_light_gate``; layouts as in ``kernels/mrla_epilogue.py``.
+One kernel (``csrc/mrla_megatail.cu`` on ``csrc/tail_x1.cuh``) computes
+both in one pass over the map and returns (y, x1), the counterpart of the
+JAX package's ``mrla_block_tail_fused_next``: 64 pixels a block, W1 through
+a ring of K chunks in shared memory, the product on wgmma
+(``megatail_tile`` states the tile).  ``out`` is relu(z + identity) and the
+gate comes from ``mrla_light_gate``; layouts as in
+``kernels/mrla_epilogue.py``.
 ``w1_next`` is the next conv1's (BN-folded) weight in the torch layout
 [C1, C, 1, 1] or [C1, C]; ``b1_next`` its bias [C1].
 
@@ -34,20 +37,38 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
 
 MEGATAIL_C1 = (64, 128, 256)
 MAX_SMEM_BYTES = 232448  # a block's dynamic shared memory on sm_90
+RING_STAGES = 3  # W1 chunks in the kernels' ring (tail_x1.cuh's kX1Stages)
+
+
+def tail_x1_smem_bytes(c: int, tile: tuple[int, int, int]) -> int:
+    """Shared memory of one block of ``csrc/tail_x1.cuh``'s kernel with
+    ``tile`` = (pixels, x1 columns a chunk, K chunk depth): the bf16 y tile
+    [pixels, C], a ring of RING_STAGES W1 chunks [columns, depth] and, for
+    the 64-pixel tiles, whose product runs on wgmma, 1 KB to align both to
+    1024 bytes."""
+    bm, cn, kc = tile
+    return 2 * (bm * c + RING_STAGES * cn * kc) + (1024 if bm == 64 else 0)
+
+
+def megatail_tile(c: int, c1: int) -> tuple[int, int, int]:
+    """The mega-tail's tile at (C, C1), as ``csrc/tail_x1.cuh``'s
+    ``tail_x1_with_tile`` picks it: (pixels a block, x1 columns a chunk, K
+    chunk depth) = (64, 128, 64) above C = 256 where C1 % 128 == 0, else
+    (64, 64, 64)."""
+    return 64, (128 if c > 256 and c1 % 128 == 0 else 64), 64
 
 
 def megatail_smem_bytes(c: int, c1: int) -> int:
-    """Shared memory of one block: the bf16 y tile [64, C + 8] and a K chunk
-    of W1 [C1, 64 + 8] (``csrc/mrla_megatail.cu``)."""
-    return 2 * (64 * (c + 8) + c1 * 72)
+    """Shared memory of one block of the mega-tail at (C, C1)."""
+    return tail_x1_smem_bytes(c, megatail_tile(c, c1))
 
 
 def megatail_covers(c: int, c1: int) -> bool:
     """True where the kernel takes a map of C channels and a next conv1 of
     C1 outputs, as its C entry point decides: C % 64 == 0, C1 in
     {64, 128, 256} and the block's shared memory within 227 KB (so C up to
-    1472 at C1 = 256; not stage 4's 2048)."""
-    return (c % 64 == 0 and c1 in MEGATAIL_C1
+    1408 at C1 = 128 or 256, 1600 at C1 = 64; not stage 4's 2048)."""
+    return (c > 0 and c % 64 == 0 and c1 in MEGATAIL_C1
             and megatail_smem_bytes(c, c1) <= MAX_SMEM_BYTES)
 
 

@@ -15,8 +15,9 @@ layouts as in ``kernels/mrla_epilogue.py``; ``w1_next`` is the next conv1's
 its bias [C1].
 
 Unlike the mega-tail it takes every (C, C1) of the resnet50 tail routes, up
-to C = 2048 with C1 = 512: a block holds 64 pixels (32 above C = 512) and
-computes x1 in chunks of 64 or 128 columns.  ``rowtail_covers`` states what
+to C = 2048 with C1 = 512: up to C = 1024 it runs the mega-tail's tiles,
+above them a block of 48 pixels (32 for odd widths) computes x1 in chunks
+of 128 (or 64) columns (``rowtail_tile``).  ``rowtail_covers`` states what
 the kernel takes, as its C entry point decides.  The JAX kernel's row
 pipeline, scratch ring and padding of C1 to 128 are TPU artifacts and have
 no counterpart.
@@ -38,27 +39,37 @@ from mrla_tpu_torch.kernels.mrla_epilogue import (
     check_tail_args,
     use_plain_version,
 )
-from mrla_tpu_torch.kernels.mrla_megatail import MAX_SMEM_BYTES, _w1_matrix
+from mrla_tpu_torch.kernels.mrla_megatail import (
+    MAX_SMEM_BYTES,
+    _w1_matrix,
+    megatail_tile,
+    tail_x1_smem_bytes,
+)
 from mrla_tpu_torch.ops.common import depthwise_conv3x3
 
 
-def rowtail_tile_pixels(c: int) -> int:
-    """Pixels a block of the x1 kernel holds: 64, or 32 above C = 512."""
-    return 64 if c <= 512 else 32
+def rowtail_tile(c: int, c1: int) -> tuple[int, int, int]:
+    """The x1 kernel's tile at (C, C1), as ``csrc/mrla_rowtail.cu`` picks
+    it: (pixels a block, x1 columns a chunk, K chunk depth).  The
+    mega-tail's up to C = 1024; above, (48, 128, 32) where C1 % 128 == 0
+    and it fits (C up to 2112), else (32, 64, 32)."""
+    if c <= 1024:
+        return megatail_tile(c, c1)
+    if c1 % 128 == 0 and tail_x1_smem_bytes(c, (48, 128, 32)) <= MAX_SMEM_BYTES:
+        return 48, 128, 32
+    return 32, 64, 32
 
 
 def rowtail_smem_bytes(c: int, c1: int) -> int:
-    """Shared memory of one block of the x1 kernel: the bf16 y tile
-    [pixels, C + 8] and a K chunk of W1 [64 or 128 columns, 64 + 8]."""
-    cn = 128 if c1 % 128 == 0 else 64
-    return 2 * (rowtail_tile_pixels(c) * (c + 8) + cn * 72)
+    """Shared memory of one block of the x1 kernel at (C, C1)."""
+    return tail_x1_smem_bytes(c, rowtail_tile(c, c1))
 
 
 def rowtail_covers(c: int, c1: int) -> bool:
     """True where the kernel takes a map of C channels and a next conv1 of
     C1 outputs (C1 = 0: y alone), as its C entry point decides: y alone
     takes C % 8 == 0; with x1, C % 64 == 0, C1 % 64 == 0 and the block's
-    shared memory within 227 KB (C up to 3328 at any C1)."""
+    shared memory within 227 KB (C up to 3392 at any C1)."""
     if c <= 0 or c % 8 or c1 < 0:
         return False
     if c1 == 0:

@@ -50,7 +50,7 @@ from collections import defaultdict
 import torch
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
-    ("mrla mega-tail kernel", ("mrla_megatail_kernel",)),
+    ("mrla mega-tail kernel", ("tail_x1_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
     ("mrla stage-4 kernel: products", ("stage4_gemm_kernel",)),
     ("mrla stage-4 kernel: tails", ("stage4_tail_kernel",)),
@@ -82,7 +82,7 @@ DEIT_GROUPS = (
 DETECT_GROUPS = (
     ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
     ("roi_align kernel", ("roi_align_kernel",)),
-    ("mrla mega-tail kernel", ("mrla_megatail_kernel",)),
+    ("mrla mega-tail kernel", ("tail_x1_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
     ("sort (top-k)", ("sort", "radix")),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn",

@@ -81,12 +81,19 @@ def test_epilogue_kernel_matches_plain(cuda, b, h, w, c):
     _assert_ulps(y, fused_epilogue_reference(**a), 1)
 
 
+# and the W1 ring's edges: C = 64 and 128 (fewer K chunks than ring
+# stages), a ragged P = 3 x 5 x 7, one column chunk and several, the
+# detection shape
 @pytest.mark.parametrize("b,h,w,c,c1", [(1, 5, 7, 64, 64),
                                         (2, 56, 56, 256, 64),
                                         (2, 56, 56, 256, 128),
                                         (3, 28, 28, 512, 128),
                                         (2, 28, 28, 512, 256),
-                                        (2, 9, 11, 256, 256)])
+                                        (2, 9, 11, 256, 256),
+                                        (3, 5, 7, 128, 128),
+                                        (3, 5, 7, 256, 64),
+                                        (3, 5, 7, 512, 256),
+                                        (1, 50, 84, 1024, 256)])
 def test_megatail_kernel_matches_plain(cuda, b, h, w, c, c1):
     a = _tail(cuda, b, h, w, c)
     w1 = (torch.randn(c1, c, 1, 1, generator=cuda, device="cuda")
@@ -267,7 +274,8 @@ def test_deit_serving_routes_through_the_tail_kernel(cuda):
 # the mega-tail's C entry point takes exactly what megatail_covers states
 @pytest.mark.parametrize("c,c1", [(1024, 256), (1472, 256), (1536, 64),
                                   (1536, 256), (1024, 512), (2048, 64),
-                                  (2048, 256)])
+                                  (2048, 256), (1408, 256), (1408, 128),
+                                  (1600, 64), (1664, 64)])
 def test_megatail_entry_point_agrees_with_megatail_covers(cuda, c, c1):
     from mrla_tpu_torch.kernels import megatail_covers
 
@@ -564,14 +572,26 @@ def test_block_tail_entry_point_rejects_c_not_multiple_of_8(cuda):
     torch.cuda.synchronize()
 
 
-# C1 = 64 and 512, H = 2, W = 7, B = 3; C = 2048 takes the 32-pixel tile;
-# C1 = 0 is y alone
+# C1 = 64 and 512, H = 2, W = 7, B = 3; C = 2048 takes the 48-pixel tile;
+# C1 = 0 is y alone; and the W1 ring's edges: C = 64 and 128 (fewer K
+# chunks than ring stages), a ragged P = 3 x 5 x 7, one column chunk and
+# several, C = 2048 at B = 1, the detection shape, C1 % 128 != 0 at
+# C = 2048 and the widest C taken (both the 32-pixel tile with 32-deep K
+# chunks)
 @pytest.mark.parametrize("b,h,w,c,c1", [(3, 2, 7, 256, 64),
                                         (1, 5, 7, 1024, 512),
                                         (3, 7, 7, 2048, 512),
                                         (2, 14, 14, 1024, 256),
                                         (3, 2, 7, 192, 0),
-                                        (3, 7, 7, 2048, 0)])
+                                        (3, 7, 7, 2048, 0),
+                                        (3, 5, 7, 64, 64),
+                                        (3, 5, 7, 128, 128),
+                                        (3, 5, 7, 256, 256),
+                                        (3, 5, 7, 512, 256),
+                                        (1, 7, 7, 2048, 512),
+                                        (1, 50, 84, 1024, 256),
+                                        (3, 5, 7, 2048, 192),
+                                        (2, 5, 7, 3392, 64)])
 def test_rowtail_kernel_matches_plain(cuda, b, h, w, c, c1):
     from mrla_tpu_torch.kernels import mrla_rowtail, mrla_rowtail_reference
 
@@ -597,7 +617,9 @@ def test_rowtail_kernel_matches_plain(cuda, b, h, w, c, c1):
 
 # the C entry point refuses these with cudaErrorInvalidValue (1), as
 # rowtail_covers states: C % 64 with x1, C1 % 64, a tile beyond 227 KB
-@pytest.mark.parametrize("c,c1", [(96, 64), (256, 96), (4096, 512)])
+# (the widest taken is 3392)
+@pytest.mark.parametrize("c,c1", [(96, 64), (256, 96), (4096, 512),
+                                  (3456, 64), (3456, 512)])
 def test_rowtail_entry_point_agrees_with_rowtail_covers(cuda, c, c1):
     from mrla_tpu_torch.kernels import mrla_rowtail, rowtail_covers
 
@@ -616,7 +638,38 @@ def test_rowtail_entry_point_agrees_with_rowtail_covers(cuda, c, c1):
                      a["wv"], a["lam"], a["bn_scale"], a["bn_bias"])
 
 
-@pytest.mark.parametrize("b,h,w,c", [(3, 2, 7, 64), (3, 56, 56, 256)])
+# what the C side launches at (C, C1) is the tile and the shared memory the
+# wrappers' rules state (megatail_tile, rowtail_tile, tail_x1_smem_bytes)
+@pytest.mark.parametrize("kind,c,c1", [
+    ("megatail", 256, 64), ("megatail", 256, 128), ("megatail", 512, 128),
+    ("megatail", 512, 256), ("megatail", 1024, 256), ("rowtail", 1024, 256),
+    ("rowtail", 1024, 512), ("rowtail", 2048, 512), ("rowtail", 2048, 192),
+    ("rowtail", 3392, 64)])
+def test_tail_x1_tiles_agree_with_the_wrappers(cuda, kind, c, c1):
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import library
+    from mrla_tpu_torch.kernels.mrla_megatail import (
+        RING_STAGES,
+        megatail_tile,
+        tail_x1_smem_bytes,
+    )
+    from mrla_tpu_torch.kernels.mrla_rowtail import rowtail_tile
+
+    out = (ctypes.c_int * 6)()
+    err = getattr(library(), f"mrla_{kind}_describe")(c, c1,
+                                                       ctypes.addressof(out))
+    assert err == 0
+    blocks_per_sm, bm, cn, stages, kc, smem = out
+    tile = (megatail_tile if kind == "megatail" else rowtail_tile)(c, c1)
+    assert (bm, cn, kc) == tile and stages == RING_STAGES
+    assert smem == tail_x1_smem_bytes(c, tile) and blocks_per_sm >= 1
+
+
+# sizes that are no multiple of a block's share of the copy (1024 16-byte
+# vectors)
+@pytest.mark.parametrize("b,h,w,c", [(3, 2, 7, 64), (3, 56, 56, 256),
+                                     (3, 4, 5, 64), (7, 33, 31, 136)])
 def test_hwbc_copy_kernel_is_a_new_equal_tensor(cuda, b, h, w, c):
     from mrla_tpu_torch.kernels import hwbc_copy
 
@@ -628,6 +681,23 @@ def test_hwbc_copy_kernel_is_a_new_equal_tensor(cuda, b, h, w, c):
     assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
     x.zero_()
     assert not torch.equal(y, x)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(3, 4, 5, 64), (1, 1, 1, 8),
+                                     (7, 33, 31, 136), (128, 56, 56, 256)])
+def test_hwbc_copy_entry_point_copies_every_byte(cuda, b, h, w, c):
+    """The copy kernel's C entry point gives a bitwise copy over a
+    NaN-filled buffer, at sizes that are no multiple of a block's 1024
+    vectors."""
+    from mrla_tpu_torch.kernels._build import library
+
+    x = torch.randn(b, h, w, c, generator=cuda, device="cuda").bfloat16()
+    y = torch.full_like(x, float("nan"))
+    err = library().hwbc_copy_bf16(x.data_ptr(), y.data_ptr(), b, h, w, c,
+                                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(y, x)
 
 
 def test_hwbc_copy_entry_point_rejects_c_not_multiple_of_8(cuda):

@@ -167,10 +167,13 @@ def test_mask_preset_needs_a_mask_head():
 
 # What the mega-tail kernel (csrc/mrla_megatail.cu) takes, from its source:
 # C % 64 == 0, C1 in {64, 128, 256}, and a block's shared memory, a bf16 y
-# tile [64, C + 8] plus a W1 chunk [C1, 72], within 232448 bytes.
+# tile [64, C], a ring of 3 W1 chunks [columns, 64] (128 columns above
+# C = 256 where C1 % 128 == 0, else 64) and 1 KB to align them, within
+# 232448 bytes.
 def _kernel_takes(c, c1):
+    cols = 128 if c > 256 and c1 % 128 == 0 else 64
     return (c % 64 == 0 and c1 in (64, 128, 256)
-            and 2 * (64 * (c + 8) + 72 * c1) <= 232448)
+            and 2 * (64 * c + 3 * cols * 64) + 1024 <= 232448)
 
 
 @pytest.mark.parametrize("width", [448, 896])

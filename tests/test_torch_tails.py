@@ -231,6 +231,26 @@ def test_rowtail_covers(c, c1, covered):
     assert rowtail_covers(c, c1) is covered
 
 
+# The (C, next C1) pairs the engine sends to the mega-tail today: layer1_0..2
+# and layer2_0..3 at 224 px, and the same plus layer3_0..4 on the 800 x 1344
+# detection trunk.  The kernel's ring must leave every one of them covered.
+@pytest.mark.parametrize("c,c1", [
+    (256, 64), (256, 128), (512, 128), (512, 256),
+    (256, 64), (256, 128), (512, 128), (512, 256), (1024, 256)])
+def test_megatail_covers_the_routed_pairs(c, c1):
+    from mrla_tpu_torch.kernels import megatail_covers
+
+    assert megatail_covers(c, c1)
+
+
+# Every (C, C1) of the rowtail route at 224 px (C1 = 0: layer4_2, y alone).
+@pytest.mark.parametrize("c,c1", [
+    (256, 64), (256, 128), (512, 128), (512, 256), (1024, 256), (1024, 512),
+    (2048, 512), (2048, 0)])
+def test_rowtail_covers_the_route_shapes(c, c1):
+    assert rowtail_covers(c, c1)
+
+
 def test_rowtail_needs_w1_and_b1_together():
     t = _torch_args(_jax_args(_tail_args(np.random.default_rng(5), 1, 3, 3,
                                          64), False), 64)
@@ -252,6 +272,16 @@ def test_hwbc_copy_is_a_new_equal_tensor(b):
     x.zero_()  # no alias: y keeps its values
     assert not torch.equal(y, x)
     assert (hwbc_copy.counter.calls, hwbc_copy.counter.launches) == (1, 0)
+
+
+# sizes that are no multiple of a kernel block's share (1024 or 2048
+# 16-byte vectors; 16 KB)
+@pytest.mark.parametrize("shape", [(3, 4, 5, 64), (7, 33, 31, 136)])
+def test_hwbc_copy_at_odd_sizes(shape):
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        shape).astype(np.float32)).bfloat16()
+    y = hwbc_copy(x)
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
 
 
 def test_hwbc_copy_matches_jax_at_a_batch_of_8():
