@@ -22,7 +22,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      without x1; the copy held bitwise, a new tensor, and timed in turns
      with x.clone()); at each mega-tail and row-tail shape also, as
      diagnostics, the row tail's y alone, the product alone as one PyTorch
-     expression, and the launch's tile, blocks an SM and waves;
+     expression, and the launch's tile, blocks an SM and waves; at each
+     block-tail shape the segment a thread walks, blocks an SM and waves;
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
@@ -74,10 +75,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. two-stage detection training (fp32, TF32 off): the RoIAlign backward
      kernel against its plain version on the sampled rois of one 800 x 800,
      batch 8 step of the mask preset (512 rois at 7 x 7, 128 at 14 x 14)
-     with a seeded cotangent, run twice (the run-to-run difference of its
-     atomics), with its time (the buffers' zero-fill inside), bound and
-     plain time, and the forward kernel at the training shapes; the
-     wrapper's autograd on the card against CPU copies, and a backward that
+     with a seeded cotangent, run twice (the two runs bitwise equal), with
+     its time (the rois' boxes inside), bound and plain time, and the
+     forward kernel at the training shapes; the wrapper's autograd on the
+     card against CPU copies, and a backward that
      ignores valid, which must fail that check; one full-depth step at 800
      x 800, batch 2, on the card against the same step on the CPU (loss
      terms; the R-CNN loss's gradient to P2..P5 on the CPU's sampled rois),
@@ -431,10 +432,30 @@ def check_kernels(lib):
     return rows
 
 
+def block_tail_launch(lib, shape) -> dict:
+    """The block-tail kernel's launch at ``shape`` (B, H, W, C): the
+    segment a thread walks, threads a block, columns in a thread's cp.async
+    ring, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    blocks and waves."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check
+
+    out = (ctypes.c_int * 5)()
+    check(lib.mrla_block_tail_describe(*shape, ctypes.addressof(out)),
+          f"mrla_block_tail_describe {shape}")
+    seg, threads, per_sm, blocks, stages = out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(segment=seg, threads=threads, blocks_per_sm=per_sm,
+                blocks=blocks, waves=blocks / (per_sm * sms),
+                ring_columns=stages)
+
+
 def check_block_tail(lib, gen):
     """The block-tail kernel (the route's mrla_block_tail and
     mrla_block_tail_hwbc) against its plain version at every shape of the
-    block_tail route and the JAX tests' shapes."""
+    block_tail route and the JAX tests' shapes, with its launch (segment,
+    blocks an SM, waves)."""
     from mrla_tpu_torch.kernels import (
         fused_block_tail,
         fused_block_tail_reference,
@@ -462,12 +483,18 @@ def check_block_tail(lib, gen):
         # relu(z + id) adds 2 operations an element to the epilogue's
         bound_ms, by = bound(3 * n * 2 + b * c * 4 + 12 * c * 4, 0,
                              (TAIL_FP32_OPS + 2) * n)
+        launch = block_tail_launch(lib, shape)
         rows[shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=err, tol=tol,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            **launch)
         print(f"block tail {stage} [{b},{h},{w},{c}] bf16: max|Δy| {err:.3g}"
               f" (tol {tol:.3g}: 1 bf16 ulp at max|y|) | kernel {ms:.4f} ms,"
-              f" bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+              f" bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms | "
+              f"segment {launch['segment']} px, {launch['threads']} threads "
+              f"a block, a ring of {launch['ring_columns']} columns, "
+              f"{launch['blocks_per_sm']} blocks an SM, {launch['blocks']} "
+              f"blocks, {launch['waves']:.2f} waves")
         if not err <= tol:
             raise AssertionError(f"block tail {shape}: {err} > {tol}")
         del a, args, y, y_ref
@@ -1171,10 +1198,11 @@ def roi_work(feats, geom, out_size: int, smax: int, out_bytes: int):
 def grad_work(hw, b, c, geom, out_size: int, smax: int):
     """(bytes, fp32 operations) that one RoIAlign backward over ``geom``
     needs on this data: the valid rois' fp32 cotangent read once, the fp32
-    gradient buffers written once, the geometry read once (the kernel's
-    read-backs of its own output for its atomic adds are its cost, not the
-    function's); per valid roi, bin, channel and pair of distinct (y, x)
-    cells of the bin one multiply and one add."""
+    gradient buffers written once, the geometry read once (what the kernel
+    writes and reads again, its scratch and the rows of rois that meet
+    several tiles, is its cost, not the function's); per valid roi, bin,
+    channel and pair of distinct (y, x) cells of the bin one multiply and
+    one add."""
     (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi), _, _, valid = \
         roi_axes(hw, b, geom, out_size, smax)
 
@@ -1465,8 +1493,9 @@ TRAIN_ROI = {(TRAIN_BATCH, 512, 7, 256): "box head"}
 TRAIN_MASK_ROI = {(TRAIN_BATCH, 128, 14, 256): "mask head",
                   (TRAIN_BATCH, 128, 28, TRAIN_MAX_GT): "gt mask crop"}
 # each cell of the backward sums at most a few hundred weighted cotangent
-# terms (fp32 atomics, in no fixed order): 64 fp32 roundings of the sum of
-# its terms' magnitudes, cell by cell (test_torch_gpu.py holds the same)
+# terms, in another order than the plain version's: 64 fp32 roundings of
+# the sum of its terms' magnitudes, cell by cell (test_torch_gpu.py holds
+# the same)
 GRAD_ROUNDINGS = 64
 # the in-situ step: full depth, 800 x 800, batch 2.  Card against CPU, both
 # fp32: the loss terms relative, the gradient of the R-CNN loss to each of
@@ -1521,13 +1550,14 @@ def train_argv(preset: str, steps: int, extra=()):
 def check_roi_align_grad():
     """The backward kernel against its plain version on the rois of one
     full-size training step of the mask preset (taken through the loss's
-    stage hook) with a seeded cotangent, twice (the run-to-run difference
-    of its atomics); its time, bound and the plain version's time; and the
+    stage hook) with a seeded cotangent, twice (the two runs must be
+    bitwise equal); its time, bound and the plain version's time; and the
     forward kernel at the training shapes in fp32."""
     from mrla_tpu_torch.detect import train_cli
     from mrla_tpu_torch.detect.roi_align import (
         roi_align_backward_reference,
         roi_align_reference,
+        roi_footprint,
         roi_geometry,
     )
     from mrla_tpu_torch.detect.two_stage import ROI_STRIDES
@@ -1568,10 +1598,12 @@ def check_roi_align_grad():
         want = roi_align_backward_reference(ct, geom, hw, o, smax)
         mags = roi_align_backward_reference(ct.abs(), geom, hw, o, smax)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        rerun = max((g - a).abs().max().item() for g, a in zip(got, again))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
         worst = max(((g - w).abs() / (GRAD_ROUNDINGS * 2.0 ** -24 * m
                                       + 1e-30)).max().item()
                     for g, w, m in zip(got, want, mags))
+        boxes_same = torch.equal(kernel_boxes(ct, geom, hw, smax),
+                                 roi_footprint(geom, hw, o, smax))
         ms = cuda_ms(lambda: roi_align_grad_kernel(ct, geom, hw, smax))
         plain_ms = cuda_ms(lambda: roi_align_backward_reference(
             ct, geom, hw, o, smax), iters=3, warmup=1)
@@ -1582,28 +1614,53 @@ def check_roi_align_grad():
         levels = torch.bincount(g[live, 7].long(), minlength=4).tolist()
         rows[("bwd", b, p, o, c)] = dict(
             shape=f"{TRAIN_PATH} {name}: [{b},{p}] rois, out {o}x{o}, C {c}",
-            max_abs_err=err, rerun_max_abs_diff=rerun, tol_ratio=worst,
+            max_abs_err=err, reruns_bitwise_equal=same, tol_ratio=worst,
+            boxes_are_roi_footprint=boxes_same,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=None)
         print(f"roi_align_bwd {name} [{b},{p},{o},{o},{c}] fp32: valid rois "
               f"{int(live.sum())}, by level {levels}; max|Δgrad| {err:.3g} "
               f"(worst cell at {worst:.3g} of its limit, {GRAD_ROUNDINGS} "
               f"fp32 roundings of the sum of its terms' magnitudes); two "
-              f"runs differ by {rerun:.3g} at max|grad| "
-              f"{max(w.abs().max().item() for w in want):.4g} | kernel "
-              f"{ms:.4f} ms with the "
-              f"zero-fill of the buffers inside the window, bound "
+              f"runs {'bitwise equal' if same else 'DIFFER'} at max|grad| "
+              f"{max(w.abs().max().item() for w in want):.4g}; its rois' "
+              f"boxes {'are' if boxes_same else 'DIFFER FROM'} "
+              f"roi_footprint's bit for bit | kernel {ms:.4f} ms (its "
+              f"per-roi pass inside), bound "
               f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
               f"{ops / 1e9:.3f} GFLOP), plain {plain_ms:.4f} ms, library "
               f"n/a (no PyTorch call computes it)")
         if not worst <= 1.0:
             raise AssertionError(f"roi_align_bwd {name}: a cell beyond its "
                                  f"limit ({worst:.3g})")
+        if not same:
+            raise AssertionError(f"roi_align_bwd {name}: two runs differ")
+        if not boxes_same:
+            raise AssertionError(f"roi_align_bwd {name}: its boxes are not "
+                                 f"roi_footprint's")
         del got, again, want, mags, ct
     cases["gt mask crop"] = crop_case(seen["mask RoIAlign 14x14"], batch)
     for name, case in cases.items():
         time_forward(name, *case)
     return rows
+
+
+def kernel_boxes(ct, geom, hw, smax) -> torch.Tensor:
+    """The rois' boxes as the backward kernel computes them: its C entry
+    point over uncleared buffers, the start of its scratch read back."""
+    from mrla_tpu_torch.kernels._build import check
+    from mrla_tpu_torch.kernels.roialign_patch import (
+        grad_scratch,
+        launch_grad,
+        scratch_boxes,
+    )
+
+    b, p, _, _, c = ct.shape
+    bufs = [torch.empty(b, h, w, c, device="cuda") for h, w in hw]
+    scratch = grad_scratch(ct, hw, fill=0xFF)
+    check(launch_grad(bufs, geom, ct, scratch, smax), "roi_align_bwd")
+    torch.cuda.synchronize()
+    return scratch_boxes(scratch, b * p)
 
 
 def crop_case(mask_inputs, batch):

@@ -29,6 +29,7 @@ from mrla_tpu_torch.detect.roi_align import (
     map_roi_levels,
     roi_align_backward_reference,
     roi_align_reference,
+    roi_footprint,
     roi_geometry,
 )
 from mrla_tpu_torch.detect.targets import max_iou_assign
@@ -39,5 +40,6 @@ __all__ = [
     "delta2bbox", "fpn_forward", "freeze_stages", "grid_anchors",
     "map_roi_levels", "max_iou_assign",
     "multiclass_nms_fixed", "nms_fixed", "pyramid_anchors",
-    "roi_align_backward_reference", "roi_align_reference", "roi_geometry",
+    "roi_align_backward_reference", "roi_align_reference", "roi_footprint",
+    "roi_geometry",
 ]

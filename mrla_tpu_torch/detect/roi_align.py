@@ -98,6 +98,46 @@ def roi_geometry(
     return geom.contiguous(), smax
 
 
+def roi_footprint(geom: torch.Tensor, feats_hw: Sequence[Sequence[int]],
+                  out_size: int, smax: int) -> torch.Tensor:
+    """The cells each roi's samples can reach: geometry [B, P, GEOM_FIELDS]
+    from :func:`roi_geometry` -> int32 [B * P, 4] boxes (y0, y1, x0, x1),
+    half-open, in cells of the roi's level.
+
+    A box spans, along each axis, the low cell of the first live sample
+    slot to the high neighbour of the last one, with the slots and border
+    rules of :func:`axis_samples` (a live slot has ``i < g`` and a sample
+    inside [-1, n], clamped to [0, n - 1]; its high neighbour is
+    ``min(low + 1, n - 1)``) computed in the same fp32 operations.  So it
+    holds every cell the roi gives a weight, and reaches at most one cell
+    past them on the high side (a last sample on a cell boundary gives its
+    high neighbour no weight).  An invalid roi, or one with no live slot
+    on an axis, gets the empty box (0, 0, 0, 0).  The plain version of the
+    boxes the backward kernel computes for itself (``chip_smoke.py`` and
+    ``tests/test_torch_gpu.py`` hold the two equal on the card); tensor
+    operations on the geometry's device, as :func:`roi_geometry`'s."""
+    g = geom.reshape(-1, GEOM_FIELDS).float()[:, :, None, None]
+    dev = g.device
+    sizes = torch.tensor([[int(h), int(w)] for h, w in feats_hw],
+                         dtype=torch.float32, device=dev)
+    n = sizes[g[:, GEOM_LEVEL, 0, 0].long()][:, :, None, None]  # [R, 2, 1, 1]
+    start = g[:, GEOM_Y1:GEOM_X1 + 1]
+    bin_size = g[:, GEOM_BIN_Y:GEOM_BIN_X + 1]
+    gf = g[:, GEOM_GY:GEOM_GX + 1]
+    i = torch.arange(smax, dtype=torch.float32, device=dev)
+    o = torch.arange(out_size, dtype=torch.float32, device=dev)[:, None]
+    t = start + (o + (i + 0.5) / gf) * bin_size  # [R, 2, O, smax]
+    live = (t >= -1.0) & (t <= n) & (i < gf)
+    lo = torch.floor(torch.minimum(torch.maximum(t, torch.zeros_like(t)),
+                                   n - 1.0))
+    hi = torch.minimum(lo + 1.0, n - 1.0)
+    first = torch.where(live, lo, math.inf).flatten(2).amin(-1)  # [R, 2]
+    end = torch.where(live, hi, -1.0).flatten(2).amax(-1) + 1.0
+    keep = (first < end).all(-1) & (g[:, GEOM_VALID, 0, 0] != 0)
+    box = torch.stack([first, end], -1).reshape(-1, 4)
+    return torch.where(keep[:, None], box, 0.0).int()
+
+
 def axis_samples(start: torch.Tensor, bin_size: torch.Tensor,
                  g: torch.Tensor, size: torch.Tensor, out_size: int,
                  smax: int):

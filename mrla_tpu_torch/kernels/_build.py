@@ -36,7 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int,
-# strides as long long)
+# strides as long long); each returns an int (a cudaError) unless RESTYPES
+# names it
 SIGNATURES = {
     # out, id, gate, wv, lam, scale, bias, y, B, H, W, C, stream
     "mrla_epilogue_bf16": [_P] * 8 + [_I] * 4 + [_P],
@@ -56,10 +57,16 @@ SIGNATURES = {
     # f0..f3, (H, W) of 4 levels, L, geom, out, B, P, C, O, smax, bf16,
     # stream
     "roi_align_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 6 + [_P],
-    # grad0..grad3, (H, W) of 4 levels, L, geom, g, B, P, C, O, smax, stream
-    "roi_align_bwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 5 + [_P],
+    # grad0..grad3, (H, W) of 4 levels, L, geom, g, scratch, B, P, C, O,
+    # smax, stream
+    "roi_align_bwd": [_P] * 4 + [_I] * 9 + [_P] * 3 + [_I] * 5 + [_P],
+    # B, P, C, O, (H, W) of 4 levels, L -> bytes (long long; -1: refused)
+    "roi_align_bwd_scratch_bytes": [_I] * 13,
     # z, id, gate, wv, lam, scale, bias, y, B, H, W, C, stream
     "mrla_block_tail_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # B, H, W, C, int[5] out: segment length, threads a block, blocks an SM,
+    # blocks, columns in a thread's ring
+    "mrla_block_tail_describe": [_I] * 4 + [_P],
     # out, id, gs, wv, ls, bias, w1, b1, y, x1, B, H, W, C, C1, stream
     # (C1 = 0: y alone, w1 / b1 / x1 null)
     "mrla_rowtail_bf16": [_P] * 10 + [_I] * 5 + [_P],
@@ -67,6 +74,9 @@ SIGNATURES = {
     # x, y, B, H, W, C, stream
     "hwbc_copy_bf16": [_P] * 2 + [_I] * 4 + [_P],
 }
+
+
+RESTYPES = {"roi_align_bwd_scratch_bytes": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -140,7 +150,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

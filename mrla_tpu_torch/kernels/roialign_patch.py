@@ -17,11 +17,15 @@ raises.
 
 Autograd: ``roi_align_patch`` is one ``torch.autograd.Function`` on both
 devices, as the JAX function is a custom VJP.  Its forward computes the
-geometry once and saves only that (no activation); its backward scatters
-the cotangent into a zero-filled fp32 gradient per level, through the
-backward kernel (``roi_align_grad_kernel``; fp32 cotangent, C % 8 == 0)
-for CUDA tensors or ``roi_align_backward_reference`` for CPU tensors, and
-casts it to each level's dtype.  No gradient goes to ``rois`` or
+geometry once and saves only that (no activation); its backward computes
+the fp32 gradient of each level, through the backward kernel
+(``roi_align_grad_kernel``; fp32 cotangent, C % 8 == 0) for CUDA tensors
+or ``roi_align_backward_reference`` for CPU tensors, and casts it to each
+level's dtype.  The backward kernel writes every gradient cell once, from
+the block that owns it, summing in a fixed order: two launches on the same
+inputs give the same bits.  Which rois reach a block it reads from their
+boxes, which it computes first as ``detect.roi_align.roi_footprint`` does
+(the boxes' plain version).  No gradient goes to ``rois`` or
 ``roi_valid`` (they are detached), as in mmcv and the JAX VJP.
 
 For CPU tensors the wrapper runs the plain versions; for CUDA tensors it
@@ -49,6 +53,14 @@ MAX_LEVELS = 4
 _DTYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _level_dims(feats_hw: Sequence[Sequence[int]]) -> List[int]:
+    """(H, W) of 4 levels as the C entry points take them, 0 past L."""
+    dims = []
+    for i in range(MAX_LEVELS):
+        dims += [int(v) for v in feats_hw[i]] if i < len(feats_hw) else [0, 0]
+    return dims
+
+
 def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
                      out_size: int, smax: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors with a given geometry (what
@@ -67,9 +79,7 @@ def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
     out = torch.empty((b, p, out_size, out_size, c), dtype=feats[0].dtype,
                       device=dev)
     ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - len(feats))
-    dims = []
-    for i in range(MAX_LEVELS):
-        dims += list(feats[i].shape[1:3]) if i < len(feats) else [0, 0]
+    dims = _level_dims([f.shape[1:3] for f in feats])
     with torch.cuda.device(dev):
         err = library().roi_align_fwd(
             *ptrs, *dims, len(feats), geom.data_ptr(), out.data_ptr(), b, p,
@@ -81,13 +91,54 @@ def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
     return out
 
 
+def grad_scratch(grad: torch.Tensor, feats_hw: Sequence[Sequence[int]],
+                 lib=None, fill: Optional[int] = None) -> torch.Tensor:
+    """The backward kernel's scratch buffer for a cotangent like ``grad``
+    (uint8, uncleared unless ``fill`` gives a byte); ``lib`` is the kernel
+    library (default ``library()``).  It starts with the rois' boxes:
+    ``scratch_boxes``."""
+    lib = lib or library()
+    b, p, o, _, c = grad.shape
+    n = lib.roi_align_bwd_scratch_bytes(b, p, c, o, *_level_dims(feats_hw),
+                                        len(feats_hw))
+    if fill is None:
+        return torch.empty(max(n, 1), dtype=torch.uint8, device=grad.device)
+    return torch.full((max(n, 1),), fill, dtype=torch.uint8,
+                      device=grad.device)
+
+
+def scratch_boxes(scratch: torch.Tensor, rois: int) -> torch.Tensor:
+    """The rois' boxes [rois, 4] int32 (y0, y1, x0, x1) that the backward
+    kernel wrote at the start of its scratch buffer."""
+    return scratch[:16 * rois].view(torch.int32).reshape(rois, 4)
+
+
+def launch_grad(grads: Sequence[torch.Tensor], geom: torch.Tensor,
+                grad: torch.Tensor, scratch: torch.Tensor, smax: int,
+                lib=None) -> int:
+    """The backward's C entry point on given level buffers and scratch (a
+    CUDA cotangent, fp32, contiguous): its cudaError."""
+    lib = lib or library()
+    b, p, o, _, c = grad.shape
+    hw = [g.shape[1:3] for g in grads]
+    ptrs = [g.data_ptr() for g in grads] + [None] * (MAX_LEVELS - len(grads))
+    with torch.cuda.device(grad.device):
+        return lib.roi_align_bwd(
+            *ptrs, *_level_dims(hw), len(grads), geom.data_ptr(),
+            grad.data_ptr(), scratch.data_ptr(), b, p, c, o, smax,
+            torch.cuda.current_stream().cuda_stream)
+
+
 def roi_align_grad_kernel(grad: torch.Tensor, geom: torch.Tensor,
                           feats_hw: Sequence[Sequence[int]],
                           smax: int) -> List[torch.Tensor]:
     """Launch the backward kernel on a CUDA cotangent grad [B, P, out, out,
     C] (fp32) with the forward's geometry -> the fp32 gradient of each level
-    [B, H_l, W_l, C]; the buffers are zero-filled here and the kernel adds
-    into them.  Counts the launch under ("bwd", B, P, out, C)."""
+    [B, H_l, W_l, C].  The kernel fills a scratch buffer (the rois' boxes as
+    ``roi_footprint`` computes them, which tell each tile of the levels
+    which rois reach it; their cells' bins; the narrow rois' folded rows)
+    and writes every cell of the level buffers, so all are allocated
+    uncleared.  Counts the launch under ("bwd", B, P, out, C)."""
     if grad.dtype != torch.float32:
         raise TypeError(f"the cotangent must be float32, got {grad.dtype}")
     if not 1 <= len(feats_hw) <= MAX_LEVELS:
@@ -96,17 +147,9 @@ def roi_align_grad_kernel(grad: torch.Tensor, geom: torch.Tensor,
     dev = grad.device
     grad = grad.contiguous()
     geom = geom.to(dev, torch.float32).contiguous()
-    grads = [torch.zeros((b, int(h), int(w), c), dtype=torch.float32,
+    grads = [torch.empty((b, int(h), int(w), c), dtype=torch.float32,
                          device=dev) for h, w in feats_hw]
-    ptrs = [g.data_ptr() for g in grads] + [None] * (MAX_LEVELS - len(grads))
-    dims = []
-    for i in range(MAX_LEVELS):
-        dims += [int(v) for v in feats_hw[i]] if i < len(grads) else [0, 0]
-    with torch.cuda.device(dev):
-        err = library().roi_align_bwd(
-            *ptrs, *dims, len(grads), geom.data_ptr(), grad.data_ptr(), b, p,
-            c, o, smax, torch.cuda.current_stream().cuda_stream,
-        )
+    err = launch_grad(grads, geom, grad, grad_scratch(grad, feats_hw), smax)
     check(err, f"roi_align_bwd (C={c}, out={o}, smax={smax})")
     roi_align_patch.counter.launch(("bwd", b, p, o, c))
     return grads

@@ -80,7 +80,7 @@ DEIT_GROUPS = (
 
 
 DETECT_GROUPS = (
-    ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
+    ("roi_align backward kernel", ("roi_align_bwd",)),
     ("roi_align kernel", ("roi_align_kernel",)),
     ("mrla mega-tail kernel", ("tail_x1_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),

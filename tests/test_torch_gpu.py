@@ -390,16 +390,17 @@ def test_detection_serving_routes_through_the_kernels(cuda):
 
 def _grad_tol(ct, geom, hw, o, smax):
     """Each cell of the backward sums at most a few hundred weighted
-    cotangent terms, in another order (fp32 atomics): 64 fp32 roundings of
-    the sum of its terms' magnitudes, cell by cell."""
+    cotangent terms, in another order than the plain version's: 64 fp32
+    roundings of the sum of its terms' magnitudes, cell by cell."""
     from mrla_tpu_torch.detect.roi_align import roi_align_backward_reference
 
     mags = roi_align_backward_reference(ct.abs(), geom, hw, o, smax)
     return [64 * 2.0 ** -24 * m + 1e-30 for m in mags]
 
 
-# 1 to 4 levels, C 8 and 256, out 7 and 14, the adaptive and a static grid;
-# the rois include invalid rows and rois off the canvas
+# 1 to 4 levels, C 8 and 256, out 7, 14 and 77 (the largest taken), the
+# adaptive and a static grid; the rois include invalid rows and rois off
+# the canvas
 @pytest.mark.parametrize("levels,b,p,o,c,sr", [
     (4, 2, 300, 7, 256, 0),
     (4, 2, 50, 14, 256, 0),
@@ -407,6 +408,7 @@ def _grad_tol(ct, geom, hw, o, smax):
     (3, 2, 40, 7, 8, 0),
     (2, 1, 33, 14, 8, 2),
     (1, 3, 17, 7, 256, 0),
+    (2, 1, 12, 77, 8, 0),
 ])
 def test_roi_align_grad_kernel_matches_plain(cuda, levels, b, p, o, c, sr):
     from mrla_tpu_torch.detect.roi_align import (
@@ -430,11 +432,128 @@ def test_roi_align_grad_kernel_matches_plain(cuda, levels, b, p, o, c, sr):
                                                         smax)):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert ((g - w).abs() <= tol).all()
-        assert ((g - a).abs() <= tol).all()  # run to run: atomics' order
+        assert torch.equal(g, a)  # a fixed order of sums: the same bits
     # invalid rois add nothing: a cotangent on them alone reaches no cell
     only_invalid = ct * (~valid)[..., None, None, None]
     for g in roi_align_grad_kernel(only_invalid, geom, hw, smax):
         assert torch.count_nonzero(g) == 0
+
+
+def _grad_levels(cuda, hw, strides, rois, valid, o=7, c=64):
+    """The backward kernel and its plain version on given rois (one
+    image), with a seeded cotangent: (kernel grads, plain grads, tols,
+    geometry, smax, cotangent)."""
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_backward_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.kernels import roi_align_grad_kernel
+
+    geom, smax = roi_geometry(rois, valid, hw, strides, o, 0)
+    b, p = rois.shape[:2]
+    ct = torch.randn(b, p, o, o, c, generator=cuda, device="cuda")
+    got = roi_align_grad_kernel(ct, geom, hw, smax)
+    again = roi_align_grad_kernel(ct, geom, hw, smax)
+    torch.cuda.synchronize()
+    want = roi_align_backward_reference(ct, geom, hw, o, smax)
+    for g, a, w, tol in zip(got, again, want, _grad_tol(ct, geom, hw, o,
+                                                        smax)):
+        assert ((g - w).abs() <= tol).all()
+        assert torch.equal(g, a)
+    return got, want, geom, smax, ct
+
+
+PYRAMID = ((200, 200), (100, 100), (50, 50), (25, 25))  # 800 x 800
+
+
+def test_roi_align_grad_kernel_one_hot_tile(cuda):
+    """512 rois on one box (the hot tile of a detection step: every roi
+    of the image reaches the same few tiles), valid or not."""
+    rois = torch.tensor([310.0, 290.0, 470.0, 440.0], device="cuda")
+    rois = rois.expand(1, 512, 4).contiguous()
+    valid = torch.rand(1, 512, generator=cuda, device="cuda") > 0.25
+    got, _, _, _, _ = _grad_levels(cuda, PYRAMID, (4, 8, 16, 32), rois,
+                                   valid)
+    assert torch.count_nonzero(got[1]) > 0  # a 160 x 150 roi lands on P3
+
+
+def test_roi_align_grad_kernel_narrow_rois_on_one_tile(cuda):
+    """The rois of an untrained detector's step: points and slivers under
+    a cell wide on the canvas's bottom edge, hundreds on one tile (each of
+    their cells takes up to O x O bins: the folded path), with ordinary
+    rois among them; at O = 7 and O = 14."""
+    u = lambda *s: torch.rand(*s, generator=cuda, device="cuda")
+    x = 400.0 + u(1, 512) * 24.0
+    w = u(1, 512) * 0.8
+    y1 = torch.where(u(1, 512) < 0.5, 800.0, u(1, 512) * 700.0)
+    rois = torch.stack([x, y1, x + w, torch.full_like(x, 800.0)], -1)
+    rois[0, ::8] = torch.tensor([380.0, 700.0, 452.0, 780.0])
+    valid = u(1, 512) > 0.1
+    for o in (7, 14):
+        _, _, geom, _, _ = _grad_levels(cuda, PYRAMID, (4, 8, 16, 32), rois,
+                                        valid, o=o)
+        assert (geom[0, :, 7] == 0).float().mean() > 0.8
+
+
+def test_roi_align_grad_kernel_roi_spans_the_top_level(cuda):
+    """Rois larger than the canvas on the clamped top level: one roi
+    reaches every cell of P5, and each tile of it sums many bins."""
+    rois = torch.tensor([[[-40.0, -60.0, 840.0, 830.0],
+                          [0.0, 0.0, 800.0, 800.0],
+                          [100.0, 5.0, 790.0, 420.0]]], device="cuda")
+    valid = torch.ones(1, 3, dtype=torch.bool, device="cuda")
+    got, _, geom, _, _ = _grad_levels(cuda, PYRAMID, (4, 8, 16, 32), rois,
+                                      valid, o=14)
+    assert (geom[0, :, 7] == 3).all()
+    assert (got[3][0].abs().sum(-1) > 0).all()  # every cell of P5
+
+
+def test_roi_align_grad_kernel_level_without_rois_is_zero(cuda):
+    """Levels no roi maps to come back exactly zero (the uncleared buffers
+    are written by their tiles all the same)."""
+    rois = torch.tensor([[[10.0, 20.0, 60.0, 70.0], [300.0, 300.0, 340.0,
+                                                     350.0],
+                          [500.0, 100.0, 760.0, 380.0]]], device="cuda")
+    valid = torch.ones(1, 3, dtype=torch.bool, device="cuda")
+    got, _, geom, _, _ = _grad_levels(cuda, PYRAMID, (4, 8, 16, 32), rois,
+                                      valid)
+    assert sorted(geom[0, :, 7].long().tolist()) == [0, 0, 2]
+    assert torch.count_nonzero(got[0]) > 0 and torch.count_nonzero(got[2]) > 0
+    for lv in (1, 3):
+        assert torch.count_nonzero(got[lv]) == 0
+
+
+def test_roi_align_grad_entry_point_writes_every_cell(cuda):
+    """The C entry point over NaN-filled buffers (the levels and the
+    scratch) gives the wrapper's result: every cell of every level is
+    written, zeros included, and the kernels read of the scratch only what
+    they wrote; the boxes it writes are roi_footprint's."""
+    from mrla_tpu_torch.detect.roi_align import roi_footprint, roi_geometry
+    from mrla_tpu_torch.kernels import roi_align_grad_kernel
+    from mrla_tpu_torch.kernels._build import check
+    from mrla_tpu_torch.kernels.roialign_patch import (
+        grad_scratch,
+        launch_grad,
+        scratch_boxes,
+    )
+
+    hw = ((100, 168), (50, 84), (25, 42), (13, 21))
+    feats, rois, valid = _roi_case(cuda, 2, 60, 64, hw=hw, canvas=(400, 672),
+                                   dtype=torch.float32)
+    rois[:, 2:6, 3] = rois[:, 2:6, 1]  # zero-height rois: folded
+    geom, smax = roi_geometry(rois, valid, hw, (4, 8, 16, 32), 7, 0)
+    ct = torch.randn(2, 60, 7, 7, 64, generator=cuda, device="cuda")
+    want = roi_align_grad_kernel(ct, geom, hw, smax)
+    bufs = [torch.full((2, h, w, 64), float("nan"), device="cuda")
+            for h, w in hw]
+    scratch = grad_scratch(ct, hw, fill=0xFF)  # NaN as fp32, -1 as int32
+    check(launch_grad(bufs, geom, ct, scratch, smax), "roi_align_bwd")
+    torch.cuda.synchronize()
+    for g, w in zip(bufs, want):
+        assert torch.equal(g, w)
+    # the kernel's boxes are its plain version's, bit for bit
+    assert torch.equal(scratch_boxes(scratch, 120),
+                       roi_footprint(geom, hw, 7, smax))
 
 
 def test_roi_align_grad_entry_point_rejects(cuda):
@@ -451,6 +570,10 @@ def test_roi_align_grad_entry_point_rejects(cuda):
     with pytest.raises(TypeError, match="float32"):
         roi_align_grad_kernel(torch.randn(1, 4, 7, 7, 8, device="cuda")
                               .bfloat16(), geom, hw, smax)
+    geom78, smax78 = roi_geometry(rois, valid, hw, (4, 8), 78, 0)
+    with pytest.raises(RuntimeError, match="cudaError 1"):  # O > 77
+        roi_align_grad_kernel(torch.randn(1, 4, 78, 78, 8, device="cuda"),
+                              geom78, hw, smax78)
     assert roi_align_patch.counter.launches == 0
     torch.cuda.synchronize()
 
@@ -524,10 +647,13 @@ def _block_tail_case(gen, b, h, w, c):
     return dict(a, z=z)
 
 
-# small odd shapes (W = 7, H = 2, B = 3) and main-path widths at a small
-# batch
-@pytest.mark.parametrize("b,h,w,c", [(3, 2, 7, 64), (1, 5, 7, 256),
-                                     (2, 28, 28, 512), (3, 7, 7, 2048)])
+# rows of W = 1, 2, 3, 5 and 7 pixels (the window's edges), rows longer
+# than a segment (W = 100, 150), B = 1, C = 8 and C = 2048, and main-path
+# widths at a small batch
+@pytest.mark.parametrize("b,h,w,c", [
+    (3, 2, 7, 64), (1, 5, 7, 256), (2, 28, 28, 512), (3, 7, 7, 2048),
+    (2, 3, 1, 64), (1, 4, 2, 8), (2, 1, 3, 128), (1, 6, 5, 2048),
+    (2, 3, 100, 64), (1, 2, 150, 16), (1, 56, 56, 256), (2, 9, 11, 8)])
 def test_block_tail_kernels_match_plain(cuda, b, h, w, c):
     from mrla_tpu_torch.kernels import (
         fused_block_tail,
@@ -548,7 +674,7 @@ def test_block_tail_kernels_match_plain(cuda, b, h, w, c):
     # counter, and agree with the plain version on the CPU
     wq = torch.randn(5, generator=cuda, device="cuda") * 0.3
     full = (a["z"], a["identity"], wq, wq, a["wv"], a["lam"], a["bn_scale"],
-            a["bn_bias"], c // 32)
+            a["bn_bias"], max(1, c // 32))
     mrla_block_tail_hwbc.counter.reset()
     y_hwbc = mrla_block_tail_hwbc(*full)
     y_block = mrla_block_tail(*full)

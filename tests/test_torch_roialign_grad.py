@@ -21,9 +21,11 @@ import torch
 
 from mrla_tpu.kernels.roialign_patch import roi_align_patch as j_patch
 from mrla_tpu_torch.detect.roi_align import (
+    GEOM_LEVEL,
     GEOM_VALID,
     roi_align_backward_reference,
     roi_align_reference,
+    roi_footprint,
     roi_geometry,
 )
 from mrla_tpu_torch.kernels import roi_align_patch
@@ -166,3 +168,72 @@ def test_gradcheck_on_the_cpu_function():
             lambda *fs: roi_align_patch(list(fs), rois, valid, (4, 8), 3, 0,
                                         finest_scale=24.0),
             feats, eps=0.5, atol=1e-4, rtol=1e-3, fast_mode=True)
+
+
+def _touched_and_boxes(feats_hw, strides, rois, valid, out=7, sr=0):
+    """Per roi: the cells the plain backward gives a weight (a cotangent of
+    ones on the roi's own channel, so no sum cancels) and its box."""
+    b, p = rois.shape[:2]
+    geom, smax = roi_geometry(torch.from_numpy(rois), torch.from_numpy(valid),
+                              feats_hw, strides, out, sr)
+    ct = torch.zeros(b, p, out, out, p)
+    ct[:, torch.arange(p), :, :, torch.arange(p)] = 1.0
+    grads = roi_align_backward_reference(ct, geom, feats_hw, out, smax)
+    boxes = roi_footprint(geom, feats_hw, out, smax).reshape(b, p, 4)
+    assert boxes.dtype == torch.int32
+    lvl = geom[..., GEOM_LEVEL].long()
+    for i in range(b):
+        for j in range(p):
+            yield grads[lvl[i, j]][i, :, :, j] != 0, boxes[i, j].tolist()
+
+
+def _assert_footprints(feats_hw, strides, rois, valid, out=7, sr=0):
+    for touched, (y0, y1, x0, x1) in _touched_and_boxes(
+            feats_hw, strides, rois, valid, out, sr):
+        rows = torch.nonzero(touched.any(1)).flatten().tolist()
+        cols = torch.nonzero(touched.any(0)).flatten().tolist()
+        if not rows:
+            assert (y0, y1, x0, x1) == (0, 0, 0, 0)
+            continue
+        # every touched cell inside, at most one cell of slack a side
+        assert y0 <= rows[0] and rows[-1] < y1, (rows, y0, y1)
+        assert x0 <= cols[0] and cols[-1] < x1, (cols, x0, x1)
+        assert rows[0] - y0 <= 1 and y1 - 1 - rows[-1] <= 1
+        assert cols[0] - x0 <= 1 and x1 - 1 - cols[-1] <= 1
+
+
+@pytest.mark.parametrize("sr,out", [(0, 7), (2, 7), (0, 14)])
+def test_footprint_holds_every_touched_cell(sr, out):
+    """The JAX VJP test's roi sets: realistic, overlapping rois on four
+    levels, invalid rows among them."""
+    _, rois, valid, _ = _case(60 + sr + out, c=8)
+    assert (~valid).any()
+    _assert_footprints(SIZES, STRIDES, rois, valid, out, sr)
+
+
+def test_footprint_at_edge_rois():
+    """Off the canvas, partly off it, smaller than a cell, on the clamped
+    top level (past the canvas too), aspect 3 both ways, zero extent, and
+    invalid (the empty box)."""
+    rois = np.array([[
+        [-90.0, -80.0, -20.0, -10.0],     # off the canvas: reaches nothing
+        [-40.0, 30.0, 60.0, 90.0],        # partly off it
+        [100.5, 40.2, 101.5, 40.9],       # under one cell
+        [12.0, 12.0, 12.0, 12.0],         # zero extent
+        [-50.0, -100.0, 400.0, 360.0],    # the clamped top level
+        [-200.0, -150.0, 500.0, 420.0],   # top level, past the canvas
+        [20.0, 60.0, 290.0, 150.0],       # aspect 3, wide
+        [200.0, 10.0, 240.0, 130.0],      # aspect 3, tall
+        [30.0, 30.0, 80.0, 90.0],         # invalid
+    ]], np.float32)
+    valid = np.ones(rois.shape[:2], bool)
+    valid[0, -1] = False
+    for sr in (0, 2):
+        _assert_footprints(SIZES, STRIDES, rois, valid, 7, sr)
+    geom, smax = roi_geometry(torch.from_numpy(rois), torch.from_numpy(valid),
+                              SIZES, STRIDES, 7, 0)
+    boxes = roi_footprint(geom, SIZES, 7, smax)
+    assert boxes[0].tolist() == [0, 0, 0, 0]
+    assert boxes[-1].tolist() == [0, 0, 0, 0]
+    assert geom[0, 4, GEOM_LEVEL] == 3 and geom[0, 5, GEOM_LEVEL] == 3
+    assert boxes[5].tolist() == [0, 8, 0, 11]  # the whole 8 x 11 level

@@ -109,9 +109,12 @@ def test_block_tail_matches_jax_kernel(b, h, w, c):
     _assert_ulps(got.float().numpy(), want, 1)
 
 
-# odd W and C = 64, which the JAX kernel's shape gate refuses; in fp32 the
-# jnp oracle's relu(z + id) is the unrounded value the kernel uses
-@pytest.mark.parametrize("b,h,w,c", [(2, 7, 7, 64), (3, 6, 5, 64)])
+# odd W and C = 64, which the JAX kernel's shape gate refuses, down to the
+# window's edges (rows of 1, 2 and 3 pixels); in fp32 the jnp oracle's
+# relu(z + id) is the unrounded value the kernel uses
+@pytest.mark.parametrize("b,h,w,c", [(2, 7, 7, 64), (3, 6, 5, 64),
+                                     (2, 4, 1, 64), (1, 3, 2, 64),
+                                     (2, 5, 3, 64)])
 def test_block_tail_at_odd_widths_matches_jnp_oracle(b, h, w, c):
     heads = c // 32
     j = _jax_args(_tail_args(np.random.default_rng(2), b, h, w, c), False)
