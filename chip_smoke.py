@@ -24,6 +24,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      diagnostics, the row tail's y alone, the product alone as one PyTorch
      expression, and the launch's tile, blocks an SM and waves; at each
      block-tail shape the segment a thread walks, blocks an SM and waves;
+     the stage kernel and the DeiT token tail run twice and must be
+     bitwise equal, the stage kernel printing each of its eight launches'
+     tiles and waves as mrla_stage4_describe reports them (each launch's
+     tiles covering every row once and fitting shared memory);
   4. serving: resnet50_mrlal at 224 px, batch 128, bf16 through the
      BN-folded engine for 4 requests, from seeded random weights with a
      non-zero bn3 scale and BN statistics set from seeded images
@@ -618,7 +622,7 @@ def check_copy(lib, gen):
 def check_deit_tail(lib, gen):
     """The DeiT token tail against its plain version at the main path's
     shape, the other published widths and a batch of 3, from seeded tokens
-    and weights (mrla_tpu_torch/testing.py)."""
+    and weights (mrla_tpu_torch/testing.py); two launches bitwise equal."""
     from mrla_tpu_torch.kernels import (
         deit_token_tail,
         deit_token_tail_reference,
@@ -630,6 +634,9 @@ def check_deit_tail(lib, gen):
         b, n, c = shape
         x, ot, packed = deit_tail_case(gen, b, n, c)
         out = deit_token_tail(x, ot, packed)
+        again = deit_token_tail(x, ot, packed)
+        torch.cuda.synchronize()
+        rerun_same = torch.equal(out, again)
         ref = deit_token_tail_reference(x, ot, packed)
         err = (out.float() - ref.float()).abs().max().item()
         tol = ulp_tol(ref.float(), 1)
@@ -656,25 +663,65 @@ def check_deit_tail(lib, gen):
         print(f"deit tail [{b},{n},{c}] bf16: max|Δout| {err:.3g} (tol "
               f"{tol:.3g}: 1 bf16 ulp at max|out| = "
               f"{ref.float().abs().max().item():.3g}; both round one fp32 "
-              f"value summed in another order); cls rows with ot doubled "
-              f"{'unchanged' if cls_same else 'CHANGED'} | kernel {ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+              f"value summed in another order); two launches "
+              f"{'bitwise equal' if rerun_same else 'DIFFER'}; cls rows with "
+              f"ot doubled {'unchanged' if cls_same else 'CHANGED'} | kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms")
         if not err <= tol:
             raise AssertionError(f"deit tail {shape}: {err} > {tol}")
+        if not rerun_same:
+            raise AssertionError(f"deit tail {shape}: two launches differ")
         if not cls_same:
             raise AssertionError(f"deit tail {shape}: the cls rows depend "
                                  "on ot")
-        del x, ot, out, ref, scratch
+        del x, ot, out, again, ref, scratch
     return rows
+
+
+STAGE4_STEPS = ("id0", "z0 + tail 0", "x1 1", "o 1", "z1 + tail 1", "x1 2",
+                "o 2", "z2 + tail 2")
+
+
+def stage4_plan(lib, b, cin, c1, c) -> str:
+    """The stage kernel's eight launches at batch b as the kernel reports
+    them (mrla_stage4_describe): tiles, blocks, tile shape and waves (two
+    consumer warpgroups a block).  Each launch's tiles must cover the
+    B * 49 rows once (the last tile may run past them) and its 128-channel
+    columns, and its blocks fit the card's shared memory."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check
+
+    plan = (ctypes.c_int * 48)()
+    check(lib.mrla_stage4_describe(b, cin, c1, c, ctypes.addressof(plan)),
+          "mrla_stage4_describe")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m = b * 49
+    parts = []
+    for i, step in enumerate(STAGE4_STEPS):
+        tiles, blocks, rows, cols, stages, smem = plan[6 * i:6 * i + 6]
+        n = c if step.startswith(("id0", "z")) else c1
+        m_tiles, rest = divmod(tiles, n // 128)
+        if (rest or not (m_tiles - 1) * rows < m <= m_tiles * rows
+                or cols < 128 or blocks != min(tiles, sms)
+                or not 0 < smem <= 232448):  # a block's most on sm_90
+            raise AssertionError(f"stage4 plan of {step} at B = {b}: "
+                                 f"{list(plan[6 * i:6 * i + 6])}")
+        parts.append(f"{step}: {tiles} tiles {rows}x{cols}, {blocks} blocks, "
+                     f"{stages} stages, {tiles / (2 * sms):.2f} waves")
+    return "; ".join(parts)
 
 
 def check_stage4(gen):
     """The stage kernel against its plain version at the main path's shape,
-    from seeded weights scaled by fan-in (mrla_tpu_torch/testing.py)."""
+    from seeded weights scaled by fan-in (mrla_tpu_torch/testing.py); two
+    launches bitwise equal; each launch's tiles and waves."""
     from mrla_tpu_torch.kernels import (
         stage4_resident,
         stage4_resident_reference,
     )
+    from mrla_tpu_torch.kernels._build import library
     from mrla_tpu_torch.testing import stage4_case
 
     rows = {}
@@ -683,6 +730,9 @@ def check_stage4(gen):
         # xs is a strided view of the stage's input, read in place
         ob, xs, packed = stage4_case(gen, b, cin, c1, c)
         y = stage4_resident(ob, xs, packed)
+        again = stage4_resident(ob, xs, packed)
+        torch.cuda.synchronize()
+        rerun_same = torch.equal(y, again)
         y_ref = stage4_resident_reference(ob, xs, packed)
         err = (y.float() - y_ref.float()).abs().max().item()
         tol = ulp_tol(y_ref.float(), 2)
@@ -695,19 +745,24 @@ def check_stage4(gen):
         nbytes = 2 * weights + 2 * m * (c1 + cin + c) + vectors
         bound_ms, by = bound(nbytes, 2 * m * weights,
                              3 * TAIL_FP32_OPS * m * c)
+        plan = stage4_plan(library(), b, cin, c1, c)
         rows[shape] = dict(
             shape=f"{stage} ob [{b},7,7,{c1}] xs [{b},7,7,{cin}] -> "
                   f"[{b},7,7,{c}]", max_abs_err=err, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, plan=plan)
         print(f"stage4 {rows[shape]['shape']} bf16: max|Δy| {err:.3g} (tol "
               f"{tol:.3g}: 2 bf16 ulps at max|y| = "
               f"{y_ref.float().abs().max().item():.3g}; y's own rounding of "
               f"fp32 sums taken in another order, plus the rare one-ulp "
-              f"flips of the bf16 y, x1 and o that travel on) | kernel "
+              f"flips of the bf16 y, x1 and o that travel on); two launches "
+              f"{'bitwise equal' if rerun_same else 'DIFFER'} | kernel "
               f"{ms:.4f} ms ({2 * m * weights / ms / 1e9:.1f} TFLOP/s), "
-              f"bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+              f"bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms | "
+              f"{plan}")
         if not err <= tol:
             raise AssertionError(f"stage4: {err} > {tol}")
+        if not rerun_same:
+            raise AssertionError("stage4: two launches differ")
     return rows
 
 

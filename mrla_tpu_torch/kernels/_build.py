@@ -50,6 +50,9 @@ SIGNATURES = {
     # b1, b2, b3, wq, wk, wv, lam, scale, bias, f32, yb, x1o, y, B, CIN, C1, C,
     # heads, ktap, stream
     "mrla_stage4_bf16": [_P] * 2 + [_L] * 3 + [_P] * 20 + [_I] * 6 + [_P],
+    # B, CIN, C1, C, int[8 * 6] out: each step's tiles, blocks, tile rows,
+    # tile columns, ring stages, shared memory bytes
+    "mrla_stage4_describe": [_I] * 4 + [_P],
     # N, C, d, ktap -> fp32 values of scratch per image (-1: not supported)
     "deit_token_tail_scratch_per_image": [_I] * 4,
     # x, ot, vec, taps, scratch, out, B, N, C, d, ktap, stream

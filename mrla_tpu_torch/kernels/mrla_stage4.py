@@ -29,10 +29,11 @@ of q * k in fp32, as ``mrla_light_gate`` does.
 Bound on an H100 at the published widths (CIN 1024, C1 512, C 2048) and
 batch 128: operations, 151 GFLOP of bf16 products, 0.153 ms at the
 tensor-core peak, against 69 MB of weights, inputs and output, 0.021 ms.
-The kernel therefore tiles every product over all SMs (a fixed sequence of
-product and tail kernels behind one C entry point, intermediates in scratch
-that this wrapper allocates) rather than giving a block whole images; see
-the source's header.
+The kernel therefore tiles every product over all SMs: eight launches of
+one persistent, warp-specialised product kernel (TMA into a ring of
+stages, two consumer warpgroups in turns), the block tails inside the z
+products' epilogues, intermediates in scratch that this wrapper allocates
+(``scratch``); see the source's header.
 
 ``pack_stage4_params`` lays the three blocks' serving params out as the
 kernel wants them: product weights as [N, K] matrices with K contiguous
@@ -181,6 +182,33 @@ def stage4_resident_reference(ob: torch.Tensor, xs: torch.Tensor,
     return y.reshape(b, HW, HW, c).to(ob.dtype)
 
 
+def scratch(b: int, c1: int, c: int, device) -> Dict[str, torch.Tensor]:
+    """The kernel's scratch at batch b: two fp32 [B * 49, C] buffers (id0
+    and the blocks' y, each block's y in the buffer its identity is not
+    in), y in bf16, and x1 and o in bf16."""
+    m = b * SP
+    return {"f32": torch.empty((2, m, c), dtype=torch.float32, device=device),
+            "yb": torch.empty((m, c), dtype=torch.bfloat16, device=device),
+            "x1o": torch.empty((2, m, c1), dtype=torch.bfloat16,
+                               device=device)}
+
+
+def entry_args(ob, xs, packed, scratch: Dict[str, torch.Tensor],
+               y: torch.Tensor) -> tuple:
+    """The arguments of the C entry point ``mrla_stage4_bf16`` but the
+    stream, writing the stage output into y."""
+    b, c1 = ob.shape[0], ob.shape[-1]
+    ptr = lambda name: packed[name].data_ptr()
+    return (ob.data_ptr(), xs.data_ptr(), xs.stride(0), xs.stride(1),
+            xs.stride(2), ptr("kd"), ptr("k3_0"), ptr("k1"), ptr("k2"),
+            ptr("k3"), ptr("bd"), ptr("b3_0"), ptr("b1"), ptr("b2"),
+            ptr("b3"), ptr("wq"), ptr("wk"), ptr("wv"), ptr("lam"),
+            ptr("bn_scale"), ptr("bn_bias"), scratch["f32"].data_ptr(),
+            scratch["yb"].data_ptr(), scratch["x1o"].data_ptr(),
+            y.data_ptr(), b, xs.shape[-1], c1, packed["kd"].shape[0],
+            packed["heads"], packed["wq"].shape[-1])
+
+
 def stage4_resident(ob: torch.Tensor, xs: torch.Tensor,
                     packed: Dict) -> torch.Tensor:
     """The stage output [B, 7, 7, C] in the dtype of ``ob``."""
@@ -199,24 +227,12 @@ def stage4_resident(ob: torch.Tensor, xs: torch.Tensor,
     if xs.device != ob.device or xs.dtype != torch.bfloat16:
         raise TypeError(f"xs must be bfloat16 on {ob.device}, got "
                         f"{xs.dtype} on {xs.device}")
-    m = b * SP
-    dev = ob.device
-    y = torch.empty((b, HW, HW, c), dtype=ob.dtype, device=dev)
-    # scratch: out and id / y in fp32; y, x1 and o in bf16
-    f32 = torch.empty((2, m, c), dtype=torch.float32, device=dev)
-    yb = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
-    x1o = torch.empty((2, m, c1), dtype=torch.bfloat16, device=dev)
-    ptr = lambda name: packed[name].data_ptr()
-    with torch.cuda.device(dev):
+    y = torch.empty((b, HW, HW, c), dtype=ob.dtype, device=ob.device)
+    buffers = scratch(b, c1, c, ob.device)
+    with torch.cuda.device(ob.device):
         err = library().mrla_stage4_bf16(
-            ob.data_ptr(), xs.data_ptr(), xs.stride(0), xs.stride(1),
-            xs.stride(2), ptr("kd"), ptr("k3_0"), ptr("k1"), ptr("k2"),
-            ptr("k3"), ptr("bd"), ptr("b3_0"), ptr("b1"), ptr("b2"),
-            ptr("b3"), ptr("wq"), ptr("wk"), ptr("wv"), ptr("lam"),
-            ptr("bn_scale"), ptr("bn_bias"), f32.data_ptr(), yb.data_ptr(),
-            x1o.data_ptr(), y.data_ptr(), b, cin, c1, c, packed["heads"],
-            packed["wq"].shape[-1], torch.cuda.current_stream().cuda_stream,
-        )
+            *entry_args(ob, xs, packed, buffers, y),
+            torch.cuda.current_stream().cuda_stream)
     check(err, f"mrla_stage4_bf16 (CIN={cin}, C1={c1}, C={c})")
     counter.launch((b, cin, c1, c))
     return y

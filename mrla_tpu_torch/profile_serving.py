@@ -52,8 +52,8 @@ import torch
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("mrla mega-tail kernel", ("tail_x1_kernel",)),
     ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
-    ("mrla stage-4 kernel: products", ("stage4_gemm_kernel",)),
-    ("mrla stage-4 kernel: tails", ("stage4_tail_kernel",)),
+    ("mrla stage-4 kernel (products, z with the tails)",
+     ("stage4_product_kernel",)),
     ("convolution", ("conv", "xmma", "gemm", "cutlass", "cudnn", "implicit",
                      "sm90_", "nhwc", "winograd", "fprop")),
     ("reduction (GAP, head)", ("reduce",)),

@@ -59,9 +59,11 @@ def _torch(a, dtype=torch.float32):
     return torch.from_numpy(a).to(dtype)
 
 
-@pytest.mark.parametrize("c", [384, 192])
+# the three published widths (768 at a batch of 8, the least whose B * N
+# the JAX kernel takes, to stay quick)
+@pytest.mark.parametrize("c", [384, 192, 768])
 def test_plain_version_matches_jax_kernel_f32(c):
-    x, ot, _, _, block, packed = _setup(c=c)
+    x, ot, _, _, block, packed = _setup(b=8 if c == 768 else 16, c=c)
     w, taps = j_pack(j_extract(block))
     want = j_deit_token_tail(jnp.asarray(x), jnp.asarray(ot), w, taps,
                              dim_perhead=16, interpret=True)

@@ -135,10 +135,15 @@ def test_epilogue_entry_point_rejects_c_not_multiple_of_8(cuda):
         fused_epilogue(**a)
 
 
-# the published widths at ragged row counts (49, 147 and 784 rows against
-# tiles of 64 and 128), and one narrow width the kernel takes
+# the published widths at batches around the whole-image tiles (two images
+# a tile: an odd last tile at 1, 3, 5, 11; 4, 6 and 16 even) and the
+# 128-row tiles of x1 (49 .. 784 rows), and one narrow width the kernel takes
 @pytest.mark.parametrize("b,cin,c1,c,ktap", [(1, 1024, 512, 2048, 5),
                                              (3, 1024, 512, 2048, 5),
+                                             (4, 1024, 512, 2048, 5),
+                                             (5, 1024, 512, 2048, 5),
+                                             (6, 1024, 512, 2048, 5),
+                                             (11, 1024, 512, 2048, 5),
                                              (16, 1024, 512, 2048, 5),
                                              (3, 256, 128, 512, 3)])
 def test_stage4_kernel_matches_plain(cuda, b, cin, c1, c, ktap):
@@ -150,6 +155,65 @@ def test_stage4_kernel_matches_plain(cuda, b, cin, c1, c, ktap):
     assert stage4_resident.counter.by_shape == {(b, cin, c1, c): 1}
     assert y.shape == (b, 7, 7, c) and y.dtype == torch.bfloat16
     _assert_ulps(y, stage4_resident_reference(ob, xs, packed), 2)
+
+
+# xs from a parent map whose image stride is no 7 row strides (a padded
+# map): id0 then takes whole-image tiles in place of image-row tiles
+@pytest.mark.parametrize("b", [1, 6])
+def test_stage4_kernel_takes_xs_of_any_pixel_strides(cuda, b):
+    ob, xs, packed = stage4_case(cuda, b, 1024, 512, 2048)
+    big = torch.zeros(b, 15, 14, 1024, dtype=xs.dtype, device="cuda")
+    big[:, 0:14:2, 0:14:2] = xs
+    xs2 = big[:, 0:14:2, 0:14:2]
+    assert xs2.stride(0) != 7 * xs2.stride(1) and torch.equal(xs2, xs)
+    y = stage4_resident(ob, xs2, packed)
+    _assert_ulps(y, stage4_resident_reference(ob, xs, packed), 2)
+
+
+# more images than a round of blocks holds (each block several tiles, the
+# two consumer warpgroups taking turns)
+@pytest.mark.parametrize("b", [5, 40])
+def test_stage4_two_launches_bitwise_equal_and_every_element_written(cuda, b):
+    from mrla_tpu_torch.kernels._build import library
+    from mrla_tpu_torch.kernels.mrla_stage4 import entry_args, scratch
+
+    ob, xs, packed = stage4_case(cuda, b, 1024, 512, 2048)
+    y = stage4_resident(ob, xs, packed)
+    assert torch.equal(stage4_resident(ob, xs, packed), y)
+    # through the C entry point into NaN-filled output and scratch
+    out = torch.full_like(y, float("nan"))
+    buffers = {k: v.fill_(float("nan")) for k, v in
+               scratch(b, 512, 2048, "cuda").items()}
+    err = library().mrla_stage4_bf16(
+        *entry_args(ob, xs, packed, buffers, out),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, y)
+
+
+# each launch's tiles as the kernel reports them cover the B * 49 rows once
+# (the last tile may run past them) and the output channels in 128-column
+# tiles, one block an SM at most, each block within sm_90's shared memory
+@pytest.mark.parametrize("b", [1, 2, 5, 128])
+def test_stage4_describe_tiles_cover_every_row_once(cuda, b):
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import library
+
+    cin, c1, c = 1024, 512, 2048
+    plan = (ctypes.c_int * 48)()
+    assert library().mrla_stage4_describe(b, cin, c1, c,
+                                          ctypes.addressof(plan)) == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # id0, z0, then x1, o, z of blocks 1 and 2
+    widths = [c, c, c1, c1, c, c1, c1, c]
+    for i, n in enumerate(widths):
+        tiles, blocks, rows, cols, stages, smem = plan[6 * i:6 * i + 6]
+        m_tiles, rest = divmod(tiles, n // 128)
+        assert rest == 0 and (m_tiles - 1) * rows < b * 49 <= m_tiles * rows
+        assert cols == (136 if i in (1, 4, 7) else 128)
+        assert blocks == min(tiles, sms) and stages > 0
+        assert 0 < smem <= 232448
 
 
 # C1 = 64 is no multiple of the 128-column tile: cudaErrorInvalidValue (1)
@@ -204,11 +268,14 @@ def test_gate_runs_on_the_card(cuda):
 
 
 # the three published widths, a batch whose B * N is no multiple of 8, a
-# 4x4 and a 3x3 grid, 3-tap channel convs (C = 64) and heads of 32 channels
+# single image, the 384 px base model's grid, a 4x4 and a 3x3 grid, 3-tap
+# channel convs (C = 64) and heads of 32 channels
 @pytest.mark.parametrize("b,n,c,d,ktap", [(16, 197, 384, 16, 5),
                                           (3, 197, 384, 16, 5),
+                                          (1, 197, 384, 16, 5),
                                           (5, 197, 192, 16, 5),
                                           (3, 197, 768, 16, 5),
+                                          (2, 577, 768, 16, 5),
                                           (3, 17, 128, 16, 5),
                                           (2, 10, 64, 32, 3),
                                           (1, 577, 1024, 16, 7)])
@@ -221,6 +288,29 @@ def test_deit_tail_kernel_matches_plain(cuda, b, n, c, d, ktap):
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     assert out.data_ptr() not in (x.data_ptr(), ot.data_ptr())
     _assert_ulps(out, deit_token_tail_reference(x, ot, packed, d), 1)
+
+
+# two runs of a batch bitwise equal; through the C entry point into an
+# output of NaNs, every element written
+@pytest.mark.parametrize("b,n,c", [(4, 197, 384), (3, 197, 768)])
+def test_deit_tail_two_launches_bitwise_equal_and_every_element_written(
+        cuda, b, n, c):
+    from mrla_tpu_torch.kernels._build import library
+
+    x, ot, packed = deit_tail_case(cuda, b, n, c)
+    out = deit_token_tail(x, ot, packed)
+    assert torch.equal(deit_token_tail(x, ot, packed), out)
+    lib, ktap = library(), packed.taps.shape[1]
+    scratch = torch.empty(
+        b * lib.deit_token_tail_scratch_per_image(n, c, 16, ktap),
+        device="cuda")
+    nan = torch.full_like(x, float("nan"))
+    assert lib.deit_token_tail_bf16(
+        x.data_ptr(), ot.data_ptr(), packed.vec.data_ptr(),
+        packed.taps.data_ptr(), scratch.data_ptr(), nan.data_ptr(), b, n, c,
+        16, ktap, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(nan, out)
 
 
 def test_deit_tail_cls_rows_do_not_depend_on_ot(cuda):
