@@ -23,8 +23,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      with x.clone()); at each mega-tail and row-tail shape also, as
      diagnostics, the row tail's y alone, the product alone as one PyTorch
      expression, and the launch's tile, blocks an SM and waves; at each
-     block-tail shape the segment a thread walks, blocks an SM and waves;
-     the stage kernel and the DeiT token tail run twice and must be
+     block-tail and epilogue shape the segment a thread walks, its ring,
+     blocks an SM and waves (mrla_{block_tail,epilogue}_describe), and the
+     epilogue's y held bitwise to the mega-tail's y (the tap loop the
+     window replaced) where the mega-tail takes the shape; the stage
+     kernel and the DeiT token tail run twice and must be
      bitwise equal, the stage kernel printing each of its eight launches'
      tiles and waves as mrla_stage4_describe reports them (each launch's
      tiles covering every row once and fitting shared memory);
@@ -65,7 +68,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (mrla_tpu_torch/testing.py: detector_serving_model).  First the
      RoIAlign kernel against its plain version on the rois the path makes
      (8 x 1000 proposals at 7 x 7; 8 x 100 detections at 14 x 14), in bf16
-     and in fp32, with its time, bound and plain time.  Then 2 requests on
+     and in fp32, with its time, bound and plain time, and two launches of
+     its C entry point over NaN-filled outputs that must write every
+     element and give the same bits.  Then 2 requests on
      each preset with the launches counted by shape (RoIAlign 1 per
      forward, 2 with masks; mega-tail 12 and epilogue 4, the table below),
      finite outputs and a detection in every image; against the port's fp32
@@ -81,7 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch 8 step of the mask preset (512 rois at 7 x 7, 128 at 14 x 14)
      with a seeded cotangent, run twice (the two runs bitwise equal), with
      its time (the rois' boxes inside), bound and plain time, and the
-     forward kernel at the training shapes; the wrapper's autograd on the
+     forward kernel at the training shapes (the box and mask heads' rois
+     and the gt mask crop: one level, C = 32, 28 x 28), each with the same
+     two launches over NaN; the wrapper's autograd on the
      card against CPU copies, and a backward that
      ignores valid, which must fail that check; one full-depth step at 800
      x 800, batch 2, on the card against the same step on the CPU (loss
@@ -350,6 +357,7 @@ def check_kernels(lib):
     from mrla_tpu_torch.kernels import (
         fused_epilogue,
         fused_epilogue_reference,
+        megatail_covers,
         mrla_block_tail_fused_next,
         mrla_block_tail_fused_next_reference,
     )
@@ -364,6 +372,14 @@ def check_kernels(lib):
         y_ref = fused_epilogue_reference(**a)
         err = (y.float() - y_ref.float()).abs().max().item()
         tol = ulp_tol(y_ref.float(), 1)
+        # the mega-tail's y phase is the tap loop the epilogue's window
+        # replaced (mrla_tail_y8): where it takes the shape, y must be its
+        # bits
+        same = None
+        if megatail_covers(c, 256):
+            w1 = torch.zeros(256, c, dtype=torch.bfloat16, device="cuda")
+            same = torch.equal(y, mrla_block_tail_fused_next(
+                **a, w1_next=w1, b1_next=torch.zeros(256, device="cuda"))[0])
         ptrs = [a[k].data_ptr() for k in ("out", "identity", "gate", "wv",
                                           "lam", "bn_scale", "bn_bias")]
         stream = torch.cuda.current_stream().cuda_stream
@@ -373,15 +389,24 @@ def check_kernels(lib):
         n = b * h * w * c
         bound_ms, by = bound(3 * n * 2 + b * c * 4 + 12 * c * 4, 0,
                              TAIL_FP32_OPS * n)
+        launch = window_launch(lib, "epilogue", shape)
+        bits = ("n/a (the mega-tail takes no C = %d)" % c if same is None
+                else "bitwise the mega-tail's" if same
+                else "DIFFERS FROM the mega-tail's")
         rows["epilogue"][shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=err,
-            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            tol=tol, y_bitwise_megatail_y=same, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, **launch)
         print(f"epilogue {stage} [{b},{h},{w},{c}] bf16: max|Δy| {err:.3g}"
               f" (tol {tol:.3g}: 1 bf16 ulp at max|y|; both round one fp32"
-              f" value summed in another order) | kernel {ms:.4f} ms, bound"
-              f" {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
+              f" value summed in another order); y {bits} | kernel"
+              f" {ms:.4f} ms, bound"
+              f" {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms | "
+              f"{launch_text(launch)}")
         if not err <= tol:
             raise AssertionError(f"epilogue {stage}: {err} > {tol}")
+        if same is False:
+            raise AssertionError(f"epilogue {stage}: y is not the mega-tail's")
         del a, y, y_ref
 
     for shape, (stage, _) in {**MEGATAIL_SHAPES,
@@ -436,23 +461,36 @@ def check_kernels(lib):
     return rows
 
 
-def block_tail_launch(lib, shape) -> dict:
-    """The block-tail kernel's launch at ``shape`` (B, H, W, C): the
-    segment a thread walks, threads a block, columns in a thread's cp.async
-    ring, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    blocks and waves."""
+def window_launch(lib, kind: str, shape) -> dict:
+    """The launch of a window tail kernel (kind "block_tail" or
+    "epilogue", csrc/tail_window.cuh) at ``shape`` (B, H, W, C), as its
+    describe entry point reports it: the segment a thread walks, threads a
+    block, columns in a thread's cp.async ring, blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks and waves; the
+    epilogue's also whether its window holds packed bf16 or fp32."""
     import ctypes
 
     from mrla_tpu_torch.kernels._build import check
 
-    out = (ctypes.c_int * 5)()
-    check(lib.mrla_block_tail_describe(*shape, ctypes.addressof(out)),
-          f"mrla_block_tail_describe {shape}")
-    seg, threads, per_sm, blocks, stages = out
+    out = (ctypes.c_int * 6)()
+    check(getattr(lib, f"mrla_{kind}_describe")(*shape, ctypes.addressof(out)),
+          f"mrla_{kind}_describe {shape}")
+    seg, threads, per_sm, blocks, stages, packed = out
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(segment=seg, threads=threads, blocks_per_sm=per_sm,
-                blocks=blocks, waves=blocks / (per_sm * sms),
-                ring_columns=stages)
+    d = dict(segment=seg, threads=threads, blocks_per_sm=per_sm,
+             blocks=blocks, waves=blocks / (per_sm * sms),
+             ring_columns=stages)
+    if kind == "epilogue":
+        d["window"] = "packed bf16" if packed else "fp32"
+    return d
+
+
+def launch_text(launch: dict) -> str:
+    window = f", a {launch['window']} window" if "window" in launch else ""
+    return (f"segment {launch['segment']} px, {launch['threads']} threads "
+            f"a block, a ring of {launch['ring_columns']} columns{window}, "
+            f"{launch['blocks_per_sm']} blocks an SM, {launch['blocks']} "
+            f"blocks, {launch['waves']:.2f} waves")
 
 
 def check_block_tail(lib, gen):
@@ -487,7 +525,7 @@ def check_block_tail(lib, gen):
         # relu(z + id) adds 2 operations an element to the epilogue's
         bound_ms, by = bound(3 * n * 2 + b * c * 4 + 12 * c * 4, 0,
                              (TAIL_FP32_OPS + 2) * n)
-        launch = block_tail_launch(lib, shape)
+        launch = window_launch(lib, "block_tail", shape)
         rows[shape] = dict(
             shape=f"{stage} [{b},{h},{w},{c}]", max_abs_err=err, tol=tol,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
@@ -495,10 +533,7 @@ def check_block_tail(lib, gen):
         print(f"block tail {stage} [{b},{h},{w},{c}] bf16: max|Δy| {err:.3g}"
               f" (tol {tol:.3g}: 1 bf16 ulp at max|y|) | kernel {ms:.4f} ms,"
               f" bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms | "
-              f"segment {launch['segment']} px, {launch['threads']} threads "
-              f"a block, a ring of {launch['ring_columns']} columns, "
-              f"{launch['blocks_per_sm']} blocks an SM, {launch['blocks']} "
-              f"blocks, {launch['waves']:.2f} waves")
+              f"{launch_text(launch)}")
         if not err <= tol:
             raise AssertionError(f"block tail {shape}: {err} > {tol}")
         del a, args, y, y_ref
@@ -1301,6 +1336,21 @@ def library_roi_align_ms(feats, geom, out_size: int, strides):
                             for f, bx, sc in per_level])
 
 
+def roi_reruns(feats, geom, o: int, smax: int, got) -> bool:
+    """Two launches of the forward's C entry point over NaN-filled outputs:
+    True when both write every element and give ``got``'s bits."""
+    from mrla_tpu_torch.kernels._build import check
+    from mrla_tpu_torch.kernels.roialign_patch import launch_fwd
+
+    ok = True
+    for _ in range(2):
+        out = torch.full_like(got, float("nan"))
+        check(launch_fwd(feats, geom, out, smax), "roi_align_fwd")
+        torch.cuda.synchronize()
+        ok &= torch.equal(out, got)
+    return ok
+
+
 def check_roi_align(params):
     """The RoIAlign kernel against its plain version on the rois the
     detection path makes from seeded images: the proposals of the box head
@@ -1344,6 +1394,8 @@ def check_roi_align(params):
         tol = ulp_tol(want, 1)
         got32 = roi_align_kernel(pyramid32, geom, o, smax)
         err32 = (got32 - want).abs().max().item()
+        reruns = (roi_reruns(pyramid, geom, o, smax, got)
+                  and roi_reruns(pyramid32, geom, o, smax, got32))
         tol32 = ROI_FP32_TERMS * 2.0 ** -24 * max(
             f.abs().max().item() for f in pyramid32)
         torch.cuda.synchronize()
@@ -1361,15 +1413,17 @@ def check_roi_align(params):
         rows[shape] = dict(
             shape=f"{label} [{shape[0]},{shape[1]}] rois, out {o}x{o}, "
                   f"C {shape[3]}", max_abs_err=max(err, err32), tol=tol,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-            library_ms=lib_ms, fp32_ms=ms32)
+            reruns_bitwise_equal=reruns, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, fp32_ms=ms32)
         print(f"roi_align {label} {list(got.shape)}: valid rois "
               f"{int(live.sum())}, by level {levels}, mean gy*gx "
               f"{mean_g:.2f}; bf16 max|Δ| {err:.3g} (tol {tol:.3g}: 1 bf16 "
               f"ulp at max|out| = {want.abs().max().item():.3g}; both round "
               f"one fp32 value summed in another order); fp32 max|Δ| "
               f"{err32:.3g} (tol {tol32:.3g}: {ROI_FP32_TERMS} fp32 "
-              f"roundings of max|feature|) | kernel {ms:.4f} ms (fp32 "
+              f"roundings of max|feature|); two launches over NaN "
+              f"{'write every element, bitwise equal' if reruns else 'DIFFER'}"
+              f" | kernel {ms:.4f} ms (fp32 "
               f"{ms32:.4f}), bound {bound_ms:.4f} ms ({by}: "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), plain "
               f"{plain_ms:.4f} ms, library "
@@ -1377,6 +1431,9 @@ def check_roi_align(params):
         if not (err <= tol and err32 <= tol32):
             raise AssertionError(f"roi_align {label}: bf16 {err} > {tol} or "
                                  f"fp32 {err32} > {tol32}")
+        if not reruns:
+            raise AssertionError(f"roi_align {label}: a launch left an "
+                                 f"element unwritten or two differ")
         del got, got32, want
     return rows
 
@@ -1740,17 +1797,20 @@ def time_forward(name, feats, o, smax, geom):
     err = (got - want).abs().max().item()
     tol = ROI_FP32_TERMS * 2.0 ** -24 * max(f.abs().max().item()
                                             for f in feats)
+    reruns = roi_reruns(feats, geom, o, smax, got)
     ms = cuda_ms(lambda: roi_align_kernel(feats, geom, o, smax))
     plain_ms = cuda_ms(lambda: roi_align_reference(feats, geom, o, smax),
                        iters=3, warmup=1)
     nbytes, ops = roi_work(feats, geom, o, smax, 4)
     bound_ms, by = bound(nbytes, 0, ops)
     print(f"roi_align fwd, training {name} {list(got.shape)} fp32: "
-          f"max|Δ| {err:.3g} (tol {tol:.3g}) | kernel {ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms")
-    if not err <= tol:
+          f"max|Δ| {err:.3g} (tol {tol:.3g}); two launches over NaN "
+          f"{'write every element, bitwise equal' if reruns else 'DIFFER'}"
+          f" | kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+          f"{plain_ms:.4f} ms")
+    if not (err <= tol and reruns):
         raise AssertionError(f"roi_align fwd {list(got.shape)}: {err} > "
-                             f"{tol}")
+                             f"{tol} or the reruns differ")
 
 
 def check_roi_align_autograd():

@@ -18,27 +18,45 @@
 // here as 8 floats a roi, so this kernel and its plain version share every
 // level decision and sample count.
 //
-// What bounds it on an H100: a gather.  At the detection path's shape (8
-// images x 1000 rois, 7 x 7 bins, C = 256, bf16 pyramid 800 x 1344) the
-// output is 200 MB and the rois' footprints on the 365 MB pyramid are read
-// once at best (about 0.1 ms of HBM time), while the samples ask for some
-// 4 x gy x gx x 512 bytes per bin and roi from L1 / L2: the kernel is
-// bound by how fast it turns dependent, scattered 16-byte loads into fp32
-// sums, not by device memory.
+// What bounds it on an H100: at the detection path's shape (8 images x
+// 1000 rois, 7 x 7 bins, C = 256, bf16 pyramid 800 x 1344) the output is
+// 200 MB and the rois' footprints on the 365 MB pyramid are read once at
+// best (together about 0.11 ms of HBM time); a kernel that sums 4 gy gx
+// corner loads a bin asks L1 / L2 for some 4 x gy x gx x 512 bytes per bin
+// and roi (3.6 GB at that shape), ten times the footprints.
 //
-// Design (simple first): one block per roi.  Its threads first build the
-// roi's two axis tables in shared memory (for each bin and sample slot:
-// low and high cell, and their weights), then loop over (bin, 8 channels)
-// items with a warp covering 32 x 8 consecutive channels of one bin: each
-// sample is four 16-byte (bf16) or 32-byte (fp32) loads along C, each
-// output one coalesced store.  There is no patch: the TPU kernel copies a
-// 56-cell patch into VMEM and contracts with two weight matrices (and
-// drops what lies outside the patch); here every sample reads the level
-// through L1 / L2, so any roi size is exact.  Sums are fp32 in another
-// order than the plain version's.  Features and output are both bf16 or
-// both fp32: the detection path reads the bf16 pyramid and writes the bf16
-// head input directly (widening bf16 to fp32 is exact, so that is the same
-// function as the JAX path's fp32 cast before and bf16 cast after).
+// Design: separable, as the TPU kernel is (Ay [O, cells] . patch . Ax^T).
+// A block per roi first builds the roi's axis tables in shared memory: the
+// taps of every bin and sample slot (axis_tap, the arithmetic of
+// detect/roi_align.py:axis_samples), then, a thread per (axis, bin), the
+// cells the bin's slots weigh with their folded weights (a cell's weight
+// is the sum of its slots' weights in slot order: a row of the TPU
+// kernel's Ay or Ax, over every cell of the level, so any roi size is
+// exact and there is no patch to fall out of).  Then each (bin, 8
+// channels) item walks its row bin's y cells, two at a time, contracting
+// each feature row over its column bin's x cells (16- or 32-byte loads
+// along C, both rows' loads issued together) and adding the row sums,
+// weighed, into its output, which it stores once.  An item reads ny x nx
+// distinct cells (about 3 x 3 on the serving path's proposals), where
+// summing corners reads 4 gy gx (18): each footprint cell is read once per
+// bin that weighs it, not once per sample and corner.  Every sum runs in a
+// fixed order: two launches give the same bits.  (The design first tried,
+// a thread keeping a group of output rows' sums in registers while it
+// walks the roi's rows once, read each cell once per column bin but held
+// too many registers to hide the loads' latency: tune_roi_align_fwd.cu's
+// row walk.)  Features and output are both bf16 or both fp32: the
+// detection path reads the bf16 pyramid and writes the bf16 head input
+// directly (widening bf16 to fp32 is exact, so that is the same function
+// as the JAX path's fp32 cast before and bf16 cast after).
+//
+// Rounding: the plain version sums up to 4 gy gx products; this kernel
+// sums, per output, ny <= 2 gy products of rounded row sums of nx <= 2 gx
+// products, with folded weights of at most 5 slot terms each (a cell lies
+// within one cell of at most 4 slots at slot spacing bin / ceil(bin) >=
+// 1 / 2, plus an edge).  Its error is at most (ny + nx + 5 + 5 + 2) fp32
+// roundings of max|feature| (the weights of a bin sum to at most 1 along
+// each axis): 40 at smax = 7, under the 196 (4 x 7 x 7) that the
+// comparison with the plain version allows (chip_smoke.py ROI_FP32_TERMS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,6 +67,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 4;
 constexpr int kGeom = 8;  // y1, x1, bin_y, bin_x, gy, gx, valid, level
+constexpr size_t kMaxDynamicSmem = 232448;  // a block's, on an H100
 
 struct Levels {
   const void* base[kMaxLevels];
@@ -121,77 +140,183 @@ __device__ __forceinline__ Tap axis_tap(float start, float bin, float g,
   return tap;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    roi_align_kernel(Levels lv, const float* __restrict__ geom,
-                     T* __restrict__ out, int P, int C, int O, int smax) {
-  extern __shared__ Tap taps[];  // [2][O][smax]: y axis, then x axis
+// The cells bin o of an axis weighs, from its slots' taps (taps[0..ng)),
+// into cell[0..n) in the order they first appear (increasing where the bin
+// runs forward), each with its folded weight in w: the sum of its slots'
+// weights on it in slot order, low then high neighbour (the sum
+// detect/roi_align.py:axis_weights and the backward's axis_bins take).
+// Returns n, at most 2 ng.
+__device__ __forceinline__ int bin_cells(const Tap* taps, int ng, int* cell,
+                                         float* w) {
+  int n = 0;
+  for (int i = 0; i < ng; ++i) {
+    const Tap t = taps[i];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int e = s ? t.hi : t.lo;
+      const float we = s ? t.whi : t.wlo;
+      if (we == 0.f) continue;  // weights are >= 0: no cell cancels
+      int k = n - 1;
+      while (k >= 0 && cell[k] != e) --k;
+      if (k >= 0) {
+        w[k] += we;
+      } else {
+        cell[n] = e;
+        w[n++] = we;
+      }
+    }
+  }
+  return n;
+}
+
+// A block per roi.  Its threads build the roi's tables: the taps of both
+// axes, then, a thread per list, for each bin along each axis the cells
+// its slots weigh with their folded weights (a row of the TPU kernel's Ay
+// or Ax).  Then each (bin, 8 channels) item contracts, for each y cell of
+// its row bin in order, that feature row over its column bin's x cells,
+// and adds the row sum, weighed, into its output, ROWS rows at a time
+// while as many are left, their loads issued together (the sums in the
+// same order).  NT threads a block, at least MINB blocks an SM.  FwdLib,
+// the library's launch, was chosen by tune_roi_align_fwd.py: the loads'
+// latency sets the time, so occupancy decides it; the register cap of 3
+// blocks of 256 threads an SM (85 a thread) beat no cap and the caps of 2
+// and 4 (64 spills) at every shape of the detection paths.
+template <int NT_, int MINB_, int ROWS_>
+struct FwdShape {
+  static constexpr int NT = NT_, MINB = MINB_, ROWS = ROWS_;
+};
+using FwdLib = FwdShape<256, 3, 2>;
+
+// Rows ky, ky + 1, ... of an item, R at a time while R are left: each
+// row's sum over the x cells (xc, xw; nx of them) of column c0 (col, the
+// image's base at c0), added weighed (yw) into acc in row order.  Returns
+// the first row left.
+template <int R, typename T>
+__device__ __forceinline__ int walk_rows(const T* col, int64_t row_stride,
+                                         int C, const int* yc,
+                                         const float* yw, int ky, int ny,
+                                         const int* xc, const float* xw,
+                                         int nx, float (&acc)[8]) {
+  for (; ky + R <= ny; ky += R) {
+    const T* rows[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) rows[u] = col + yc[ky + u] * row_stride;
+    float t[R][8];
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) t[u][c] = 0.f;
+#pragma unroll 2
+    for (int kx = 0; kx < nx; ++kx) {
+      const int64_t at = (int64_t)xc[kx] * C;
+      Vec8 v[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) v[u] = load8(rows[u] + at);
+      const float a = xw[kx];
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) t[u][c] = fmaf(a, v[u].v[c], t[u][c]);
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const float a = yw[ky + u];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = fmaf(a, t[u][c], acc[c]);
+    }
+  }
+  return ky;
+}
+
+template <typename T, class S>
+__global__ void __launch_bounds__(S::NT, S::MINB)
+    roi_align_fwd_kernel(Levels lv, const float* __restrict__ geom,
+                         T* __restrict__ out, int P, int C, int O,
+                         int smax) {
+  constexpr int NT = S::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int xm = 2 * smax;  // a bin's slots weigh at most 2 g cells
+  Tap* taps = reinterpret_cast<Tap*>(smem_raw);  // [2][O][smax]: y, x
+  int* cells = reinterpret_cast<int*>(taps + 2 * O * smax);  // [2][O][xm]
+  float* weights = reinterpret_cast<float*>(cells + 2 * O * xm);
+  int* counts = reinterpret_cast<int*>(weights + 2 * O * xm);  // [2][O]
   const int64_t r = blockIdx.x;
   const float* gm = geom + r * kGeom;
-  const float valid = gm[6];
   const int items = O * O * (C / 8);
   T* out_r = out + r * (int64_t)O * O * C;
 
-  if (valid == 0.f) {  // invalid rows are zero
+  if (gm[6] == 0.f) {  // invalid rows are zero
     const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int it = threadIdx.x; it < items; it += kThreads)
+    for (int it = threadIdx.x; it < items; it += NT)
       store8(out_r + (int64_t)it * 8, zero);
     return;
   }
   const int level = (int)gm[7];
   const int H = lv.H[level], W = lv.W[level];
-  const float gy = gm[4], gx = gm[5];
-  for (int k = threadIdx.x; k < 2 * O * smax; k += kThreads) {
+  const T* base = static_cast<const T*>(lv.base[level]) +
+                  (r / P) * (int64_t)H * W * C;
+  for (int k = threadIdx.x; k < 2 * O * smax; k += NT) {
     const int axis = k / (O * smax);
     const int o = (k / smax) % O;
     const int i = k % smax;
-    taps[k] = axis == 0 ? axis_tap(gm[0], gm[2], gy, H, o, i)
-                        : axis_tap(gm[1], gm[3], gx, W, o, i);
+    taps[k] = axis == 0 ? axis_tap(gm[0], gm[2], gm[4], H, o, i)
+                        : axis_tap(gm[1], gm[3], gm[5], W, o, i);
+  }
+  __syncthreads();
+  // list q = axis * O + bin; slots past g weigh nothing
+  for (int q = threadIdx.x; q < 2 * O; q += NT) {
+    const int ng = min((int)gm[4 + q / O], smax);
+    counts[q] = bin_cells(taps + q * smax, ng, cells + q * xm,
+                          weights + q * xm);
   }
   __syncthreads();
 
-  const T* base = static_cast<const T*>(lv.base[level]) +
-                  (r / P) * (int64_t)H * W * C;
-  const int ny = (int)gy, nx = (int)gx;
   const int groups = C / 8;
-  const Tap* ty = taps;
-  const Tap* tx = taps + O * smax;
-  for (int it = threadIdx.x; it < items; it += kThreads) {
+  const int64_t row_stride = (int64_t)W * C;
+  for (int it = threadIdx.x; it < items; it += NT) {
     const int bin = it / groups;
     const int c0 = (it % groups) * 8;
     const int oy = bin / O, ox = bin % O;
+    const int ny = counts[oy], nx = counts[O + ox];
+    const int* yc = cells + oy * xm;
+    const float* yw = weights + oy * xm;
+    const int* xc = cells + (O + ox) * xm;
+    const float* xw = weights + (O + ox) * xm;
+    const T* col = base + c0;
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < ny; ++i) {
-      const Tap a = ty[oy * smax + i];
-      if (a.wlo == 0.f && a.whi == 0.f) continue;
-      const T* row_lo = base + (int64_t)a.lo * W * C + c0;
-      const T* row_hi = base + (int64_t)a.hi * W * C + c0;
-      for (int j = 0; j < nx; ++j) {
-        const Tap b = tx[ox * smax + j];
-        if (b.wlo == 0.f && b.whi == 0.f) continue;
-        const Vec8 v00 = load8(row_lo + (int64_t)b.lo * C);
-        const Vec8 v01 = load8(row_lo + (int64_t)b.hi * C);
-        const Vec8 v10 = load8(row_hi + (int64_t)b.lo * C);
-        const Vec8 v11 = load8(row_hi + (int64_t)b.hi * C);
-        const float w00 = a.wlo * b.wlo, w01 = a.wlo * b.whi;
-        const float w10 = a.whi * b.wlo, w11 = a.whi * b.whi;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          acc[k] += w00 * v00.v[k] + w01 * v01.v[k] + w10 * v10.v[k] +
-                    w11 * v11.v[k];
-      }
-    }
+    int ky = 0;
+    if constexpr (S::ROWS >= 4)
+      ky = walk_rows<4>(col, row_stride, C, yc, yw, ky, ny, xc, xw, nx, acc);
+    if constexpr (S::ROWS >= 2)
+      ky = walk_rows<2>(col, row_stride, C, yc, yw, ky, ny, xc, xw, nx, acc);
+    walk_rows<1>(col, row_stride, C, yc, yw, ky, ny, xc, xw, nx, acc);
     store8(out_r + (int64_t)bin * C + c0, acc);
   }
 }
 
-template <typename T>
-cudaError_t launch(const Levels& lv, const float* geom, void* out, int R,
-                   int P, int C, int O, int smax, cudaStream_t stream) {
-  const size_t smem = sizeof(Tap) * 2 * O * smax;
-  if (R > 0)
-    roi_align_kernel<T><<<R, kThreads, smem, stream>>>(
-        lv, geom, static_cast<T*>(out), P, C, O, smax);
+// The forward's dynamic shared memory at O x O bins and smax slots.
+size_t fwd_smem_bytes(int O, int smax) {
+  return sizeof(Tap) * 2 * O * smax +
+         (sizeof(int) + sizeof(float)) * 2 * O * 2 * (size_t)smax +
+         sizeof(int) * 2 * O;
+}
+
+// The forward of shape S over R = B x P rois; the arguments are
+// roi_align_fwd's, checked there.
+template <typename T, class S = FwdLib>
+cudaError_t launch_fwd(const Levels& lv, const float* geom, void* out,
+                       int R, int P, int C, int O, int smax,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes(O, smax);
+  if (R == 0) return cudaSuccess;
+  auto kernel = roi_align_fwd_kernel<T, S>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<R, S::NT, smem, stream>>>(lv, geom, static_cast<T*>(out), P, C,
+                                     O, smax);
   return cudaGetLastError();
 }
 
@@ -802,24 +927,25 @@ cudaError_t launch_bwd(GradLevels lv, const void* geom, const void* g,
 
 // feats: L (1..4) levels [B, H_l, W_l, C] NHWC contiguous, 16-byte aligned;
 // geom [B * P, 8] fp32; out [B, P, O, O, C] in the features' dtype: bf16
-// if bf16 is 1, fp32 if it is 0.  C % 8 == 0, O >= 1, 1 <= smax and
-// 2 * O * smax taps within 48 KB of shared memory, else
-// cudaErrorInvalidValue.
+// if bf16 is 1, fp32 if it is 0.  C % 8 == 0, O >= 1, 1 <= smax and the
+// roi's tables (fwd_smem_bytes: 64 O smax + 8 O bytes) within a block's
+// shared memory, else cudaErrorInvalidValue.
 extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
                              const void* f3, int h0, int w0, int h1, int w1,
                              int h2, int w2, int h3, int w3, int L,
                              const void* geom, void* out, int B, int P,
                              int C, int O, int smax, int bf16, void* stream) {
   if (L < 1 || L > kMaxLevels || C <= 0 || C % 8 || O < 1 || smax < 1 ||
-      sizeof(Tap) * 2 * O * smax > 48 * 1024 || B < 0 || P < 0 ||
+      fwd_smem_bytes(O, smax) > kMaxDynamicSmem || B < 0 || P < 0 ||
       (int64_t)B * P > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   Levels lv{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   const float* g = static_cast<const float*>(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * P;
-  return (int)(bf16 ? launch<__nv_bfloat16>(lv, g, out, R, P, C, O, smax, s)
-                    : launch<float>(lv, g, out, R, P, C, O, smax, s));
+  return (int)(bf16 ? launch_fwd<__nv_bfloat16>(lv, g, out, R, P, C, O,
+                                                smax, s)
+                    : launch_fwd<float>(lv, g, out, R, P, C, O, smax, s));
 }
 
 // Bytes of the backward's scratch buffer at B x P rois, C channels, O x O

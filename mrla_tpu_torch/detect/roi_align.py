@@ -166,6 +166,26 @@ def axis_samples(start: torch.Tensor, bin_size: torch.Tensor,
     return lo.long(), hi.long(), w_lo, w_hi
 
 
+def axis_weights(start: torch.Tensor, bin_size: torch.Tensor,
+                 g: torch.Tensor, size: torch.Tensor, out_size: int,
+                 smax: int, cells: int) -> torch.Tensor:
+    """One axis of every roi's pooling as a matrix: the arguments of
+    :func:`axis_samples` and a cell count -> fp32 [R, out_size, cells],
+    entry [r, o, e] the weight bin o of roi r puts on cell e (zero past the
+    level): its slots' bilinear weights on that cell summed in slot order,
+    low then high neighbour, as the CUDA forward folds them (a row of the
+    JAX kernel's ``_axis_matrix``, over every cell: no patch).  RoIAlign is
+    then ``Ay @ feat @ Ax^T`` per roi and channel."""
+    lo, hi, w_lo, w_hi = axis_samples(start, bin_size, g, size, out_size,
+                                      smax)
+    e = torch.arange(cells, device=start.device)
+    a = torch.zeros(start.shape[0], out_size, cells, device=start.device)
+    for i in range(smax):
+        a = a + torch.where(lo[..., i, None] == e, w_lo[..., i, None], 0.0)
+        a = a + torch.where(hi[..., i, None] == e, w_hi[..., i, None], 0.0)
+    return a
+
+
 def roi_align_reference(feats: Sequence[torch.Tensor], geom: torch.Tensor,
                         out_size: int, smax: int) -> torch.Tensor:
     """Plain PyTorch version of the RoIAlign kernel: feats per level

@@ -41,6 +41,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # out, id, gate, wv, lam, scale, bias, y, B, H, W, C, stream
     "mrla_epilogue_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # B, H, W, C, int[6] out: segment length, threads a block, blocks an
+    # SM, blocks, columns in a thread's ring, 1 for a packed bf16 window
+    "mrla_epilogue_describe": [_I] * 4 + [_P],
     # out, id, gate, wv, lam, scale, bias, w1, b1, y, x1, B, H, W, C, C1, stream
     "mrla_megatail_bf16": [_P] * 11 + [_I] * 5 + [_P],
     # C, C1, int[6] out: blocks an SM, pixels a block, x1 columns a chunk,
@@ -144,6 +147,26 @@ def build() -> Path:
         (out_dir / "ptxas.log").write_text("\n".join(log))
         os.replace(tmp_lib, lib)  # atomic: concurrent builders agree
     return lib
+
+
+def build_tune(source: Path) -> ctypes.CDLL:
+    """Compile a side-by-side design source (``tune_*.cu``, which includes
+    sources of ``csrc/``) with the library's flags into
+    ``_build/tune/<digest>/`` (once per digest of it, ``csrc/`` and the
+    flags) and load it; its ptxas report lands beside it."""
+    digest = hashlib.sha256(source.read_bytes() + _digest().encode())
+    out = BUILD_ROOT / "tune" / digest.hexdigest()[:16]
+    lib = out / f"lib{source.stem}.so"
+    if not lib.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        run = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+             str(lib), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed on {source.name}:\n{run.stdout}")
+        (out / "ptxas.log").write_text(run.stdout)
+    return ctypes.CDLL(str(lib))
 
 
 @functools.lru_cache(maxsize=None)

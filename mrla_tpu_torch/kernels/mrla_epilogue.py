@@ -7,7 +7,11 @@ Two phases, as in the JAX package (``mrla_tpu/kernels/mrla_epilogue.py``):
 the gate (GAP -> k-tap channel convs -> per-head sigmoid) is a [B, C]
 vector computed in PyTorch by ``mrla_light_gate``, and one kernel
 (``csrc/mrla_epilogue.cu``) does the depthwise 3x3, gate, λ, BN and residual
-with one read of (out, identity) and one write of y.
+with one read of (out, identity) and one write of y: the sliding 3x3 window
+of ``csrc/tail_window.cuh`` that the block tail from z also runs, its y bit
+for bit the tap loop's (``mrla_tail.cuh:mrla_tail_y8``, which the
+mega-tail's y phase still runs).  ``mrla_epilogue_describe`` reports its
+launch at a shape (segment, ring, blocks an SM).
 
 Layouts: activations NHWC and contiguous; ``wv`` is the depthwise kernel as
 [9, C] fp32, row ``(dh + 1) * 3 + (dw + 1)`` (the JAX [3, 3, 1, C] kernel

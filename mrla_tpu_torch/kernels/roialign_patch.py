@@ -13,7 +13,11 @@ is no 56-cell patch (so no coverage limit), no 8-aligned column origin and
 no C % 128 condition: the forward takes C % 8 == 0, one to four levels, and
 bf16 or fp32 features, with the output in the features' dtype.  Its C entry
 point rejects the rest with cudaErrorInvalidValue (1), and the wrapper
-raises.
+raises.  The forward kernel is separable, as the TPU kernel is: each output
+sums, over its row bin's y cells, the feature row contracted over its
+column bin's x cells, with folded per-cell weights
+(``detect.roi_align.axis_weights`` is their plain version), in a fixed
+order, so two launches give the same bits.
 
 Autograd: ``roi_align_patch`` is one ``torch.autograd.Function`` on both
 devices, as the JAX function is a custom VJP.  Its forward computes the
@@ -61,6 +65,23 @@ def _level_dims(feats_hw: Sequence[Sequence[int]]) -> List[int]:
     return dims
 
 
+def launch_fwd(feats: Sequence[torch.Tensor], geom: torch.Tensor,
+               out: torch.Tensor, smax: int, lib=None) -> int:
+    """The forward's C entry point on CUDA features and a given output
+    [B, P, out, out, C] (contiguous, the features' dtype; every element is
+    written): its cudaError.  ``lib`` is the kernel library (default
+    ``library()``)."""
+    lib = lib or library()
+    b, p, o, _, c = out.shape
+    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - len(feats))
+    dims = _level_dims([f.shape[1:3] for f in feats])
+    with torch.cuda.device(out.device):
+        return lib.roi_align_fwd(
+            *ptrs, *dims, len(feats), geom.data_ptr(), out.data_ptr(), b, p,
+            c, o, smax, _DTYPE_FLAG[feats[0].dtype],
+            torch.cuda.current_stream().cuda_stream)
+
+
 def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
                      out_size: int, smax: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors with a given geometry (what
@@ -78,14 +99,7 @@ def roi_align_kernel(feats: Sequence[torch.Tensor], geom: torch.Tensor,
     geom = geom.to(dev, torch.float32).contiguous()
     out = torch.empty((b, p, out_size, out_size, c), dtype=feats[0].dtype,
                       device=dev)
-    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - len(feats))
-    dims = _level_dims([f.shape[1:3] for f in feats])
-    with torch.cuda.device(dev):
-        err = library().roi_align_fwd(
-            *ptrs, *dims, len(feats), geom.data_ptr(), out.data_ptr(), b, p,
-            c, out_size, smax, _DTYPE_FLAG[feats[0].dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
+    err = launch_fwd(feats, geom, out, smax)
     check(err, f"roi_align_fwd (C={c}, out={out_size}, smax={smax})")
     roi_align_patch.counter.launch((b, p, out_size, c))
     return out

@@ -51,7 +51,7 @@ import torch
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("mrla mega-tail kernel", ("tail_x1_kernel",)),
-    ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
+    ("mrla epilogue kernel", ("::fromout",)),  # tail_window_kernel<FromOut>
     ("mrla stage-4 kernel (products, z with the tails)",
      ("stage4_product_kernel",)),
     ("convolution", ("conv", "xmma", "gemm", "cutlass", "cudnn", "implicit",
@@ -81,9 +81,9 @@ DEIT_GROUPS = (
 
 DETECT_GROUPS = (
     ("roi_align backward kernel", ("roi_align_bwd",)),
-    ("roi_align kernel", ("roi_align_kernel",)),
+    ("roi_align kernel", ("roi_align_fwd_kernel",)),
     ("mrla mega-tail kernel", ("tail_x1_kernel",)),
-    ("mrla epilogue kernel", ("mrla_epilogue_kernel",)),
+    ("mrla epilogue kernel", ("::fromout",)),  # tail_window_kernel<FromOut>
     ("sort (top-k)", ("sort", "radix")),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn",
                      "nhwc")),

@@ -50,14 +50,14 @@ __global__ void __launch_bounds__(256)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  float win[3][3][8];
+  WinCol<false> win[3];
   uint4 idc[3], pz[3], pi[3];
   load(w0 - 1, pz, pi);
 #pragma unroll
-  for (int r = 0; r < 3; ++r) form_x(pz[r], pi[r], win[0][r]);
+  for (int r = 0; r < 3; ++r) form_x(pz[r], pi[r], win[0].x[r]);
   load(w0, pz, pi);
 #pragma unroll
-  for (int r = 0; r < 3; ++r) form_x(pz[r], pi[r], win[1][r]);
+  for (int r = 0; r < 3; ++r) form_x(pz[r], pi[r], win[1].x[r]);
   idc[1] = pi[1];
   load(w0 + 1, pz, pi);
   __nv_bfloat16* yrow = y + row * a.W * (int64_t)a.C + c0;
@@ -67,7 +67,8 @@ __global__ void __launch_bounds__(256)
       const int p = w + k;
       if (p >= w1) break;
 #pragma unroll
-      for (int r = 0; r < 3; ++r) form_x(pz[r], pi[r], win[(k + 2) % 3][r]);
+      for (int r = 0; r < 3; ++r)
+        form_x(pz[r], pi[r], win[(k + 2) % 3].x[r]);
       idc[(k + 2) % 3] = pi[1];
       load(p + 2, pz, pi);
       *reinterpret_cast<uint4*>(yrow + (int64_t)p * a.C) =
@@ -83,11 +84,12 @@ __global__ void __launch_bounds__(256)
 template <class F>
 int with_variant(int v, F&& f) {
   switch (v) {
-    case 0: return f(mrla_block_tail_kernel<64, 8>, 64, 8);  // the library's,
-    case 1: return f(mrla_block_tail_kernel<64, 4>, 64, 4);  // W >= 28 / < 28
-    case 2: return f(mrla_block_tail_kernel<128, 4>, 128, 4);
-    case 3: return f(mrla_block_tail_kernel<128, 6>, 128, 6);
-    case 4: return f(mrla_block_tail_kernel<256, 6>, 256, 6);
+    // the library's, W >= 28 and W < 28
+    case 0: return f(tail_window_kernel<FromZ, false, 64, 8>, 64, 8);
+    case 1: return f(tail_window_kernel<FromZ, false, 64, 4>, 64, 4);
+    case 2: return f(tail_window_kernel<FromZ, false, 128, 4>, 128, 4);
+    case 3: return f(tail_window_kernel<FromZ, false, 128, 6>, 128, 6);
+    case 4: return f(tail_window_kernel<FromZ, false, 256, 6>, 256, 6);
     case 5: return f(block_tail_registers, 256, 0);
     default: return -1;
   }
@@ -116,7 +118,7 @@ extern "C" int tune_block_tail(int v, int seg, const void* z, const void* id,
   }
   const int segs = (W + seg - 1) / seg;
   return with_variant(v, [&](auto kernel, int nt, int stages) {
-    const size_t smem = ring_bytes(nt, stages);
+    const size_t smem = ring_bytes<FromZ>(nt, stages);
     const int64_t items = (int64_t)B * H * segs * (C / 8);
     kernel<<<(unsigned)((items + nt - 1) / nt), nt, smem, s>>>(a, out, items,
                                                                seg, segs);
@@ -136,7 +138,7 @@ extern "C" int tune_block_tail_describe(int v, int* out) {
         out, block_tail_vectors, 256, 0);
   }
   return with_variant(v, [&](auto kernel, int nt, int stages) {
-    const size_t smem = ring_bytes(nt, stages);
+    const size_t smem = ring_bytes<FromZ>(nt, stages);
     out[1] = nt;
     out[2] = (int)smem;
     const cudaError_t e = cudaFuncSetAttribute(

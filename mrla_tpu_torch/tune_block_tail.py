@@ -19,10 +19,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import math
-import subprocess
 from pathlib import Path
 
 import torch
@@ -43,23 +41,7 @@ SHAPES = [(128, 56, 56, 256), (128, 28, 28, 512), (128, 14, 14, 1024),
 
 def build() -> ctypes.CDLL:
     """Compile the variants (once per source digest) and load them."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
-        _build.NVCC_FLAGS).encode())
-    for f in sorted(_build.CSRC.iterdir()):
-        digest.update(f.read_bytes())
-    out = _build.BUILD_ROOT / "tune" / digest.hexdigest()[:16]
-    lib = out / "libtune_block_tail.so"
-    if not lib.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        nvcc = _build.nvcc_path()
-        run = subprocess.run(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC),
-             "-o", str(lib), str(SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-        (out / "ptxas.log").write_text(run.stdout)
-    cdll = ctypes.CDLL(str(lib))
+    cdll = _build.build_tune(SOURCE)
     cdll.tune_block_tail.argtypes = [ctypes.c_int] * 2 + [
         ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     cdll.tune_block_tail.restype = ctypes.c_int

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import subprocess
 from pathlib import Path
@@ -53,22 +52,7 @@ SHAPES = {0: (128, 2, 2), 1: (256, 4, 1), 2: (128, 2, 1), 3: (64, 2, 2),
 def build() -> ctypes.CDLL:
     """Compile the shapes with their block clocks (once per source digest)
     and load them."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
-        _build.NVCC_FLAGS).encode())
-    for f in sorted(_build.CSRC.iterdir()):
-        digest.update(f.read_bytes())
-    out = _build.BUILD_ROOT / "tune" / digest.hexdigest()[:16]
-    lib = out / "libtune_roi_align_bwd.so"
-    if not lib.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        run = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(lib), str(SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-        (out / "ptxas.log").write_text(run.stdout)
-    cdll = ctypes.CDLL(str(lib))
+    cdll = _build.build_tune(SOURCE)
     cdll.tune_roi_bwd.argtypes = [ctypes.c_int] + _build.SIGNATURES[
         "roi_align_bwd"][:-1] + [ctypes.c_void_p, ctypes.c_void_p]
     cdll.tune_roi_bwd.restype = ctypes.c_int

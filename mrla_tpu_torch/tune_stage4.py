@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -56,22 +55,7 @@ STEPS = ["id0", "z0 + tail 0", "x1 1", "o 1", "z1 + tail 1", "x1 2", "o 2",
 
 def build() -> ctypes.CDLL:
     """Compile the kernel's steps (once per source digest) and load them."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
-        _build.NVCC_FLAGS).encode())
-    for f in sorted(_build.CSRC.iterdir()):
-        digest.update(f.read_bytes())
-    out = _build.BUILD_ROOT / "tune" / digest.hexdigest()[:16]
-    lib = out / "libtune_stage4.so"
-    if not lib.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        run = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(lib), str(SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-        (out / "ptxas.log").write_text(run.stdout)
-    cdll = ctypes.CDLL(str(lib))
+    cdll = _build.build_tune(SOURCE)
     sig = _build.SIGNATURES["mrla_stage4_bf16"]
     cdll.tune_stage4_steps.argtypes = sig[:-1] + [ctypes.c_int] * 2 + sig[-1:]
     cdll.tune_stage4_steps.restype = ctypes.c_int

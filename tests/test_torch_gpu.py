@@ -69,16 +69,52 @@ def _assert_ulps(got, want, ulps):
     assert err <= tol, (err, tol)
 
 
-# ragged maps (pixels not a multiple of the 64-pixel tile, W=7, B=1) and
-# the main-path shapes at a small batch
-@pytest.mark.parametrize("b,h,w,c", [(1, 5, 7, 64), (3, 7, 7, 2048),
-                                     (2, 14, 14, 1024), (2, 9, 11, 256)])
+# ragged maps, W = 7, B = 1 and the main-path shapes at a small batch; the
+# window's edges: rows of W = 1, 2, 3 and 5 pixels, rows longer than a
+# segment (W = 100, 150), C = 8 and C = 2048; the detection shape
+@pytest.mark.parametrize("b,h,w,c", [
+    (1, 5, 7, 64), (3, 7, 7, 2048), (2, 14, 14, 1024), (2, 9, 11, 256),
+    (2, 3, 1, 64), (1, 4, 2, 8), (2, 1, 3, 128), (1, 6, 5, 2048),
+    (2, 3, 100, 64), (1, 2, 150, 16), (2, 9, 11, 8), (1, 50, 84, 1024)])
 def test_epilogue_kernel_matches_plain(cuda, b, h, w, c):
     a = _tail(cuda, b, h, w, c)
     fused_epilogue.counter.reset()
     y = fused_epilogue(**a)
-    assert fused_epilogue.counter.launches == 1
+    torch.cuda.synchronize()
+    assert fused_epilogue.counter.by_shape == {(b, h, w, c): 1}
     _assert_ulps(y, fused_epilogue_reference(**a), 1)
+
+
+# the mega-tail computes y through mrla_tail_y8, the tap loop the epilogue's
+# window replaced: the two y must be the same bits
+@pytest.mark.parametrize("b,h,w,c,c1", [(2, 14, 14, 1024, 256),
+                                        (1, 50, 84, 1024, 256)])
+def test_epilogue_y_is_the_megatail_y(cuda, b, h, w, c, c1):
+    a = _tail(cuda, b, h, w, c)
+    w1 = (torch.randn(c1, c, generator=cuda, device="cuda")
+          / c ** 0.5).bfloat16()
+    b1 = torch.randn(c1, generator=cuda, device="cuda") * 0.2
+    y_mega, _ = mrla_block_tail_fused_next(**a, w1_next=w1, b1_next=b1)
+    assert torch.equal(fused_epilogue(**a), y_mega)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(128, 14, 14, 1024), (128, 7, 7, 2048),
+                                     (8, 50, 84, 1024), (2, 3, 150, 8)])
+def test_epilogue_describe_covers_every_row(cuda, b, h, w, c):
+    """The launch mrla_epilogue_describe reports: segments that tile each
+    row, a thread per (segment, 8 channels), at least one block an SM."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check, library
+
+    out = (ctypes.c_int * 6)()
+    check(library().mrla_epilogue_describe(b, h, w, c, ctypes.addressof(out)),
+          "mrla_epilogue_describe")
+    seg, threads, per_sm, blocks, ring, packed = out
+    segs = -(-w // seg)
+    assert 0 < seg <= w and segs == -(-w // 64) and seg * segs >= w
+    assert blocks == -(-(b * h * segs * (c // 8)) // threads)
+    assert per_sm >= 1 and ring >= 2 and packed in (0, 1)
 
 
 # and the W1 ring's edges: C = 64 and 128 (fewer K chunks than ring
@@ -435,6 +471,86 @@ def test_roi_align_kernel_matches_plain(cuda, b, p, o, c, sr, dtype):
     else:  # fp32 sums of at most 4 * 7 * 7 weighted terms, reassociated
         tol = 196 * 2.0 ** -24 * max(f.abs().max().item() for f in feats)
         assert (got - want).abs().max().item() <= tol
+
+
+def _roi_check(feats, rois, valid, strides, o, sr, max_grid=None,
+               finest=56.0):
+    """The wrapper against the plain version in fp32 (1 bf16 ulp at
+    max|out| for bf16, 196 fp32 roundings of max|feature| for fp32); two
+    launches of the C entry point over NaN-filled outputs must write every
+    element and give the same bits."""
+    from mrla_tpu_torch.detect.roi_align import (
+        roi_align_reference,
+        roi_geometry,
+    )
+    from mrla_tpu_torch.kernels import roi_align_patch
+    from mrla_tpu_torch.kernels._build import check
+    from mrla_tpu_torch.kernels.roialign_patch import launch_fwd
+
+    got = roi_align_patch(feats, rois, valid, strides, o, sr, finest,
+                          max_grid)
+    geom, smax = roi_geometry(rois, valid, [f.shape[1:3] for f in feats],
+                              strides, o, sr, finest, max_grid)
+    want = roi_align_reference([f.float() for f in feats], geom, o, smax)
+    if feats[0].dtype == torch.bfloat16:
+        _assert_ulps(got, want, 1)
+    else:
+        tol = 196 * 2.0 ** -24 * max(f.abs().max().item() for f in feats)
+        assert (got - want).abs().max().item() <= tol
+    runs = []
+    for _ in range(2):
+        out = torch.full_like(got, float("nan"))
+        check(launch_fwd(feats, geom, out, smax), "roi_align_fwd")
+        torch.cuda.synchronize()
+        runs.append(out)
+    assert not runs[0].isnan().any()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], got)
+    return got, want
+
+
+# the separable kernel's hard cases on the detection path's pyramid: rois
+# clamped to the whole top level (P5 is 25 x 42), point-like rois (each
+# 2 x 2 cells take every bin), rois wider than 56 cells (on P2: 400 x 12
+# px), bf16 and fp32, at 7 x 7 and 14 x 14
+@pytest.mark.parametrize("case", ["top_level", "points", "wide"])
+@pytest.mark.parametrize("o,dtype", [(7, torch.bfloat16), (14, torch.bfloat16),
+                                     (7, torch.float32)])
+def test_roi_align_kernel_hard_rois(cuda, case, o, dtype):
+    feats, rois, valid = _roi_case(cuda, 2, 24, 256, dtype=dtype)
+    u = torch.rand(2, 24, 2, generator=cuda, device="cuda")
+    if case == "top_level":  # the whole canvas and more: level 3, clamped
+        rois[:] = torch.tensor([-8.0, -8.0, 1352.0, 808.0], device="cuda")
+        rois[:, 1::2, 2:] -= u[:, 1::2] * 300  # big enough for level 3
+    elif case == "points":
+        xy = u * torch.tensor([1344.0, 800.0], device="cuda")
+        rois[:] = torch.cat([xy, xy + 0.25], -1)
+    else:  # wider than 56 cells on P2, and tall ones
+        x0 = u[..., 0] * 900
+        y0 = u[..., 1] * 780
+        rois[:] = torch.stack([x0, y0, x0 + 400.0, y0 + 12.0], -1)
+        rois[:, 1::2] = torch.stack([y0[:, 1::2], x0[:, 1::2] * 0.5,
+                                     y0[:, 1::2] + 12.0,
+                                     x0[:, 1::2] * 0.5 + 300.0], -1)
+    valid[:, 0] = False
+    got, _ = _roi_check(feats, rois, valid, (4, 8, 16, 32), o, 0)
+    assert torch.count_nonzero(got[:, 0]) == 0  # invalid rows are zero
+    if case == "wide":
+        from mrla_tpu_torch.detect.roi_align import map_roi_levels
+
+        assert (map_roi_levels(rois[valid], 4) == 0).all()
+
+
+def test_roi_align_kernel_gt_crop_form(cuda):
+    """The gt mask crop as training runs it: one level at stride 1 (the
+    masks of an 800 x 800 canvas as C = 32 fp32 channels), 28 x 28 bins,
+    a 1 x 1 grid, every roi on the one level."""
+    masks = (torch.rand(2, 800, 800, 32, generator=cuda, device="cuda")
+             > 0.5).float()
+    u = torch.rand(2, 64, 4, generator=cuda, device="cuda")
+    xy = u[..., :2] * 700
+    wh = 4 + u[..., 2:] * 300
+    rois = torch.cat([xy, xy + wh], -1)
+    _roi_check([masks], rois, None, (1,), 28, 1, finest=1e9)
 
 
 def test_roi_align_entry_point_rejects(cuda):
