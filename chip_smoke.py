@@ -62,6 +62,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward at (128, 197, 384), finite logits, the same top-1 and
      logit-error check (DEIT_LOGIT_ERROR_TOL), and four injected wiring
      faults that must each fail it;
+ 6b. the MRLA-base paths, plain PyTorch with no kernel of the port (every
+     count must read 0 across their requests), at 224 px, batch 128, bf16,
+     from seeded models (mrla_tpu_torch/testing.py: mrlab_serving_model,
+     deit_serving_model): resnet50_mrlab through
+     prepare_mrlab_inference_params / resnet_mrlab_forward for 4 requests
+     with use_scan False (the growing cache) and then True (the masked
+     fixed-length form), finite logits, the top-1 and logit-error check
+     against the port's fp32 CPU model on 32 images
+     (MRLAB_LOGIT_ERROR_TOL), three injected wiring faults that must each
+     fail it (the cache not carried, a sigmoid over t, the ReLU on attn
+     dropped), the max |Δlogit| between the two forms, and img/s of each
+     form in turns with the peak memory; resnet50_mrlab22 (2 requests, the
+     same check, img/s); deit_mrlab_small_patch16_224 through
+     deit_forward (4 requests, the check with DEIT_MRLAB_LOGIT_ERROR_TOL,
+     the fault of a cache never restarted, img/s twice);
+ 6c. resnet_mrlal_forward with microbatch=32 and shared_stem on the
+     seeded params and requests of phase 4 (made anew), against the
+     unsplit forward: the max
+     |Δlogit| and the logit error within LOGIT_ERROR_TOL (no bits are
+     promised on the card), and img/s of both in turns;
   7. two-stage detection: faster_rcnn_r50mrlal_fpn_1x_coco (and the mask
      preset) at 800 x 1344, batch 8, bf16, full depth, 80 classes, through
      prepare_detect_params / two_stage_detections, from a seeded detector
@@ -163,6 +183,22 @@ DEIT_TAIL_FP32_OPS = 60
 # least of the four injected faults are printed by this script (readings in
 # PERF.md); the bf16 engine on the CPU reads 0.018 and the least fault 0.34
 DEIT_LOGIT_ERROR_TOL = 0.06
+# The MRLA-base paths (224 px, batch 128, bf16): plain PyTorch, no kernel of
+# the port.  Their logit_error limits lie between the sound reading on an
+# H100 and the least injected fault, both printed by this script: resnet50
+# _mrlab 0.0268 and 1.03 (the ReLU on attn dropped), mrlab22 0.0216,
+# deit_mrlab_small 0.0193 and 0.174 (readings in PERF.md).
+MRLAB_ARCH, MRLAB22_ARCH = "resnet50_mrlab", "resnet50_mrlab22"
+DEIT_MRLAB_ARCH = "deit_mrlab_small_patch16_224"
+MRLAB_PATHS = {False: "resnet50_mrlab growing cache",
+               True: "resnet50_mrlab masked cache"}
+MRLAB22_PATH, DEIT_MRLAB_PATH = "resnet50_mrlab22", "deit_mrlab_small"
+MRLAB_LOGIT_ERROR_TOL = 0.05
+DEIT_MRLAB_LOGIT_ERROR_TOL = 0.06
+# no_cache: each block attends to itself only; sigmoid: a sigmoid in place
+# of the softmax over t; no_relu: the ReLU on attn dropped
+MRLAB_FAULTS = ("no_cache", "sigmoid", "no_relu")
+MICROBATCH = 32  # the microbatch phase: chains of 32 on resnet50_mrlal
 MEGATAIL_SHAPES = {
     (BATCH, 56, 56, 256, 64): ("layer1_0..1", 2),
     (BATCH, 56, 56, 256, 128): ("layer1_2", 1),
@@ -1112,6 +1148,174 @@ def faulty_deit_forward(params, x, kind: str) -> torch.Tensor:
         return eng.deit_forward(params, x).cpu()
     finally:
         eng._block, eng.deit_token_tail = block, tail
+
+
+def no_kernels():
+    """A counted path's table for a path that launches none of the port's
+    kernels."""
+    return {k: {} for k in all_counters()}
+
+
+def max_delta(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def serve_mrlab(smi: str):
+    """The MRLA-base paths: resnet50_mrlab in both cache forms (the logit
+    check with its three injected faults, the forms against each other,
+    img/s in turns), resnet50_mrlab22 and deit_mrlab_small (the logit
+    check; the DeiT one with its fault).  None of them may launch a kernel
+    of the port.  Returns (launches, launches per forward by shape) keyed by
+    path, as serve()'s."""
+    from mrla_tpu_torch.serving import (
+        deit_forward,
+        prepare_deit_inference_params,
+        prepare_mrlab_inference_params,
+        resnet_mrlab_forward,
+    )
+    from mrla_tpu_torch.testing import (
+        deit_serving_model,
+        images,
+        mrlab_serving_model,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    host_batches = [images(gen, BATCH, PX) for _ in range(REQUESTS)]
+    batches = [xb.cuda() for xb in host_batches]
+    x32 = batches[0][:32]
+    launches, per_forward = {}, {}
+
+    model = mrlab_serving_model(0)
+    params = prepare_mrlab_inference_params(model, device="cuda")
+    with torch.no_grad():
+        ref = model(host_batches[0][:32])  # the port's fp32 CPU forward
+    del model
+
+    def forward(use_scan):
+        return lambda xb: resnet_mrlab_forward(params, xb, use_scan=use_scan)
+
+    logits = {}
+    for use_scan, path in MRLAB_PATHS.items():
+        logits[use_scan], launches[path], per_forward[path] = counted(
+            forward(use_scan), batches, path, no_kernels())
+        check_logits(ref, logits[use_scan][0][:32].cpu(), path,
+                     MRLAB_LOGIT_ERROR_TOL)
+    print(f"{MRLAB_ARCH}: max|Δlogit| between the growing and the masked "
+          f"cache forms over the {len(batches)} requests: "
+          f"{max_delta(logits[False], logits[True]):.4g}")
+    del logits
+    errs = {kind: logit_error(faulty_mrlab_forward(params, x32, kind), ref)
+            for kind in MRLAB_FAULTS}
+    print(f"logit error with {MRLAB_ARCH}, one wiring fault in every block "
+          "(sound reading above): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in errs.items()))
+    missed = [k for k, v in errs.items() if not v > MRLAB_LOGIT_ERROR_TOL]
+    if missed:
+        raise AssertionError(f"the logit check misses the faults {missed}")
+    for use_scan in (False, True, True, False):  # in turns, on one card
+        throughput(forward(use_scan), batches, MRLAB_PATHS[use_scan], smi)
+    del params
+
+    model = mrlab_serving_model(0, MRLAB22_ARCH)
+    params = prepare_mrlab_inference_params(model, device="cuda",
+                                            deep_stem=False)
+    with torch.no_grad():
+        ref = model(host_batches[0][:32])
+    del model
+    fwd22 = lambda xb: resnet_mrlab_forward(params, xb, relu_on_attn=False)
+    out, launches[MRLAB22_PATH], per_forward[MRLAB22_PATH] = counted(
+        fwd22, batches[:2], MRLAB22_PATH, no_kernels())
+    check_logits(ref, out[0][:32].cpu(), MRLAB22_PATH, MRLAB_LOGIT_ERROR_TOL)
+    throughput(fwd22, batches, MRLAB22_PATH, smi)
+    del params, out
+
+    model = deit_serving_model(DEIT_MRLAB_ARCH, 0)
+    params = prepare_deit_inference_params(model, device="cuda")
+    with torch.no_grad():
+        ref = model(host_batches[0][:32])
+    del model
+    fwd_deit = lambda xb: deit_forward(params, xb)
+    out, launches[DEIT_MRLAB_PATH], per_forward[DEIT_MRLAB_PATH] = counted(
+        fwd_deit, batches, DEIT_MRLAB_PATH, no_kernels())
+    check_logits(ref, out[0][:32].cpu(), DEIT_MRLAB_PATH,
+                 DEIT_MRLAB_LOGIT_ERROR_TOL)
+    period, params["mrlab_size"] = params["mrlab_size"], len(params["blocks"])
+    try:  # the fault: the cache never restarts
+        err = logit_error(deit_forward(params, x32).cpu(), ref)
+    finally:
+        params["mrlab_size"] = period
+    print(f"logit error with {DEIT_MRLAB_PATH}, the cache never restarted: "
+          f"{err:.4g}")
+    if not err > DEIT_MRLAB_LOGIT_ERROR_TOL:
+        raise AssertionError("the logit check misses the fault")
+    for _ in range(2):
+        throughput(fwd_deit, batches, DEIT_MRLAB_PATH, smi)
+    return launches, per_forward
+
+
+def faulty_mrlab_forward(params, x, kind: str) -> torch.Tensor:
+    """The resnet50_mrlab engine (growing cache) with one wiring fault
+    (MRLAB_FAULTS) in every block."""
+    import mrla_tpu_torch.serving.resnet_mrlab as eng
+    from mrla_tpu_torch.ops import mrla as ops
+
+    if kind == "no_relu":
+        return eng.resnet_mrlab_forward(params, x, relu_on_attn=False).cpu()
+    attend = eng.mrla_base_attention
+
+    def own_layer_only(out, p, heads, cache, max_t=None):
+        return attend(out, p, heads, None)[0], cache
+
+    def sigmoid_over_t(out, p, heads, cache, max_t=None):
+        q, k_t, v_t = ops._qkv(out, p, heads)
+        cache = ops.MRLACache(ops._append(cache.k, k_t),
+                              ops._append(cache.v, v_t))
+        attn = torch.sigmoid(ops._logits(q, cache.k, heads))
+        return ops._weighted_sum(attn, cache.v, cache.k.shape[1]), cache
+
+    eng.mrla_base_attention = (own_layer_only if kind == "no_cache"
+                               else sigmoid_over_t)
+    try:
+        return eng.resnet_mrlab_forward(params, x).cpu()
+    finally:
+        eng.mrla_base_attention = attend
+
+
+def check_microbatch(smi: str):
+    """resnet_mrlal_forward with microbatch=MICROBATCH and shared_stem
+    against the unsplit forward, on serve()'s seeded params and requests:
+    the logits within LOGIT_ERROR_TOL of each other (a convolution may take
+    another algorithm at batch 32 than at 128, so no bits are promised on
+    the card), and img/s of both in turns."""
+    from mrla_tpu_torch.serving import (
+        prepare_inference_params,
+        resnet_mrlal_forward,
+    )
+    from mrla_tpu_torch.testing import images, serving_model
+
+    params = prepare_inference_params(serving_model(0), device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    batches = [images(gen, BATCH, PX).cuda() for _ in range(REQUESTS)]
+    unsplit = lambda xb: resnet_mrlal_forward(params, xb)
+    split = lambda xb: resnet_mrlal_forward(params, xb, microbatch=MICROBATCH,
+                                            shared_stem=True)
+    a = [unsplit(xb) for xb in batches]
+    b = [split(xb) for xb in batches]
+    for out in b:
+        check_logits_out(out)
+    err = max(logit_error(y.cpu(), x.cpu()) for x, y in zip(a, b))
+    print(f"resnet50_mrlal microbatch={MICROBATCH} shared_stem=True against "
+          f"the unsplit forward, {len(batches)} requests: max|Δlogit| "
+          f"{max_delta(a, b):.4g}, logit error {err:.4g} (tol "
+          f"{LOGIT_ERROR_TOL}); bitwise equal: "
+          f"{all(torch.equal(x, y) for x, y in zip(a, b))}")
+    if not err <= LOGIT_ERROR_TOL:
+        raise AssertionError(f"microbatch: logit error {err}")
+    route = f"resnet50_mrlal microbatch={MICROBATCH} shared_stem"
+    for fn, name in [(unsplit, "resnet50_mrlal unsplit"), (split, route),
+                     (split, route), (unsplit, "resnet50_mrlal unsplit")]:
+        throughput(fn, batches, name, smi)
 
 
 def logit_error(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -2155,6 +2359,9 @@ def main() -> int:
     rows = check_kernels(lib)
     launches, per_forward = serve(smi)
     launches[DEIT_PATH], per_forward[DEIT_PATH] = serve_deit(smi)
+    for key, got in zip((launches, per_forward), serve_mrlab(smi)):
+        key.update(got)
+    check_microbatch(smi)
     rows["roi_align"], det_launches, det_per_forward = serve_detect(smi)
     launches.update(det_launches)
     per_forward.update(det_per_forward)

@@ -20,7 +20,17 @@ sources in ``csrc/``) for every TPU kernel it runs:
   * two-stage detection serving (``detect/``, ``serving/detect.py``: Faster
     / Mask R-CNN on the MRLA backbone + FPN) with the RoIAlign kernel;
   * two-stage detection training (``detect/train_cli.py``, the synthetic
-    source in ``data/``) with the RoIAlign backward kernel.
+    source in ``data/``) with the RoIAlign backward kernel;
+  * the MRLA-base family: the eq. 6 and LA (eq. 4) ops, the
+    resnet50/101/152_mrlab, resnet50_mrlab22 and resnet50/101_la_eq4
+    models, the eq. 6 serving engine ``serving/resnet_mrlab.py`` and the
+    ``deit_mrlab_*`` archs in the DeiT engine.  The JAX package computes
+    them in plain jax.numpy, with no TPU kernel, and so does the port, in
+    plain PyTorch.
+
+The serving entries take the JAX package's ``microbatch`` option (and
+``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by
+default (``serving/microbatch.py`` says why).
 
 :func:`entry` is the package's counterpart of the repository's
 ``__graft_entry__.entry()``.

@@ -1,11 +1,13 @@
 from mrla_tpu_torch.ckpt.from_jax import (
     detector_state_dict_from_jax,
+    mrlab_serving_params_from_jax,
     serving_params_from_jax,
     state_dict_from_jax,
     tail_params_from_jax,
     vit_state_dict_from_jax,
 )
 
-__all__ = ["detector_state_dict_from_jax", "serving_params_from_jax",
+__all__ = ["detector_state_dict_from_jax", "mrlab_serving_params_from_jax",
+           "serving_params_from_jax",
            "state_dict_from_jax", "tail_params_from_jax",
            "vit_state_dict_from_jax"]

@@ -1,11 +1,13 @@
-"""JAX/Flax variables -> the port's ``state_dict`` (resnet mrlal and DeiT
-families), and a JAX serving tree -> the port's serving params (resnet
-mrlal family).
+"""JAX/Flax variables -> the port's ``state_dict`` (resnet mrlal, mrlab and
+LA eq. 4, and DeiT families), and a JAX serving tree -> the port's serving
+params (resnet mrlal and mrlab).
 
 The exact inverse of the JAX package's ``convert_resnet_state_dict`` for
-the mrlal family, from plain numpy:
+those families, from plain numpy:
 
     params/stem/conv1/kernel            -> conv1.weight               (HWIO->OIHW)
+    params/stem/conv1{a,b,c}/kernel     -> conv1.{0,3,6}.weight       (deep stem)
+    .../stem/bn1{a,b}/*                 -> conv1.{1,4}.*              (deep stem)
     {params,batch_stats}/stem/bn1/*     -> bn1.*
     params/layer{s}_{b}/conv{i}/kernel  -> layer{s}.{b}.conv{i}.weight
     .../bn{i}, .../bn_mrla              -> layer{s}.{b}.bn{i}.*, .bn_mrla.*
@@ -14,6 +16,9 @@ the mrlal family, from plain numpy:
     .../mrla/mrla/proj/w{q,k} [k]       -> layer{s}.{b}.mrla.mrla.W{q,k}.weight [1,1,k]
     .../mrla/mrla/proj/wv [3,3,1,C]     -> layer{s}.{b}.mrla.mrla.Wv.weight [C,1,3,3]
     .../mrla/lambda_t [C]               -> layer{s}.{b}.mrla.lambda_t [C,1,1]
+                                           (light only: base has no λ)
+    .../la_proj/w{q,k,v}                -> layer{s}.{b}.la.W{q,k,v}.weight
+    .../bn_la                           -> layer{s}.{b}.bn_la.*
     params/head/fc/{kernel,bias}        -> fc.{weight,bias}           (kernel transposed)
 
 BN leaves map scale/bias/mean/var -> weight/bias/running_mean/running_var,
@@ -30,8 +35,14 @@ same layout) into what the port's ``prepare_inference_params`` returns:
     blocks[i]/wq, wk, lam, bn_scale, bn_bias     -> flat fp32 vectors
     fc/k [C, classes]                            -> [classes, C]
 
+``mrlab_serving_params_from_jax`` converts the tree that the JAX
+package's ``prepare_mrlab_inference_params`` returns (the stem list, each
+stage's ``first`` block and its stacked ``interior`` blocks) into what the
+port's ``prepare_mrlab_inference_params`` returns: the same layouts as
+above, ``wv`` [3,3,1,C] -> [C,1,3,3], blocks listed per stage.
+
 ``vit_state_dict_from_jax`` is the exact inverse of the JAX package's
-``convert_vit_state_dict`` for the plain (distilled or not) and light
+``convert_vit_state_dict`` for the plain (distilled or not), light and base
 variants:
 
     params/{cls_token,dist_token,pos_embed}      -> the same names
@@ -42,6 +53,7 @@ variants:
     .../mrla/lambda_t [C]                        -> blocks.{i}.mrla.lambda_t [C]
     .../mrla/mrla/proj/w{q,k} [k]                -> blocks.{i}.mrla.mrla.W{q,k}.weight [1,1,k]
     .../mrla/mrla/proj/wv [3,3,1,C]              -> blocks.{i}.mrla.mrla.Wv.weight [C,1,3,3]
+    .../mrla/mrla/mrla/proj/w{q,k,v} (base)      -> blocks.{i}.mrla.mrla.W{q,k,v}.weight
     params/norm, params/head, params/head_dist   -> norm.*, head.*, head_dist.*
 
 ``tail_params_from_jax`` pulls one block's tail out of its Flax subtree in
@@ -93,6 +105,18 @@ def _oihw(kernel) -> torch.Tensor:
     return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
+# the deep stem's (conv, the BN inside conv1) pairs; bn1 follows conv1c
+_DEEP_STEM = (("conv1a", "bn1a"), ("conv1b", "bn1b"), ("conv1c", None))
+
+
+def _projections(sd: Dict, prefix: str, proj: Mapping) -> None:
+    """An MRLA projection subtree (wq, wk [k]; wv [3,3,1,C]) ->
+    ``{prefix}.W{q,k,v}.weight``."""
+    sd[f"{prefix}.Wq.weight"] = _t(proj["wq"]).reshape(1, 1, -1)
+    sd[f"{prefix}.Wk.weight"] = _t(proj["wk"]).reshape(1, 1, -1)
+    sd[f"{prefix}.Wv.weight"] = _oihw(proj["wv"])
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` (numpy or array leaves) -> state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
@@ -103,8 +127,15 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{prefix}.{name}"] = _t((p if col == "params" else s)[leaf])
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
-    sd["conv1.weight"] = _oihw(params["stem"]["conv1"]["kernel"])
-    bn("bn1", params["stem"]["bn1"], stats["stem"]["bn1"])
+    stem, stem_stats = params["stem"], stats["stem"]
+    if "conv1a" in stem:  # the deep stem
+        for i, (conv, norm) in enumerate(_DEEP_STEM):
+            sd[f"conv1.{3 * i}.weight"] = _oihw(stem[conv]["kernel"])
+            if norm:
+                bn(f"conv1.{3 * i + 1}", stem[norm], stem_stats[norm])
+    else:
+        sd["conv1.weight"] = _oihw(stem["conv1"]["kernel"])
+    bn("bn1", stem["bn1"], stem_stats["bn1"])
 
     blocks = sorted(
         (n for n in params if n.startswith("layer")),
@@ -123,11 +154,14 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             )
             bn(f"{pre}.downsample.1", p["downsample"]["bn"],
                s["downsample"]["bn"])
-        proj = p["mrla"]["mrla"]["proj"]
-        sd[f"{pre}.mrla.mrla.Wq.weight"] = _t(proj["wq"]).reshape(1, 1, -1)
-        sd[f"{pre}.mrla.mrla.Wk.weight"] = _t(proj["wk"]).reshape(1, 1, -1)
-        sd[f"{pre}.mrla.mrla.Wv.weight"] = _oihw(proj["wv"])
-        sd[f"{pre}.mrla.lambda_t"] = _t(p["mrla"]["lambda_t"]).reshape(-1, 1, 1)
+        if "la_proj" in p:  # LA eq. 4
+            _projections(sd, f"{pre}.la", p["la_proj"])
+            bn(f"{pre}.bn_la", p["bn_la"], s["bn_la"])
+            continue
+        _projections(sd, f"{pre}.mrla.mrla", p["mrla"]["mrla"]["proj"])
+        if "lambda_t" in p["mrla"]:  # light; base has no λ
+            sd[f"{pre}.mrla.lambda_t"] = _t(
+                p["mrla"]["lambda_t"]).reshape(-1, 1, 1)
         bn(f"{pre}.bn_mrla", p["bn_mrla"], s["bn_mrla"])
 
     if "head" in params:  # a features_only backbone has none
@@ -230,6 +264,51 @@ def serving_params_from_jax(tree: Mapping, device="cuda",
     return out
 
 
+def mrlab_serving_params_from_jax(tree: Mapping, device="cuda",
+                                  dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """A JAX MRLA-base serving tree (numpy or array leaves) -> the port's
+    mrlab serving params on ``device``: conv weights and biases and the fc
+    weight in ``dtype``; the MRLA vectors, ``wv`` and the fc bias fp32."""
+    dev = resolve_device(device)
+
+    def conv(k):  # through fp32: numpy has no native bfloat16
+        return _oihw(np.asarray(k, np.float32)).to(dev, dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def vec(a):
+        return _t(np.asarray(a, np.float32)).reshape(-1).to(dev)
+
+    def block(p) -> Dict:
+        blk: Dict = {}
+        for name in ("1", "2", "3", "d"):
+            if f"k{name}" in p:
+                blk[f"k{name}"] = conv(p[f"k{name}"])
+                blk[f"b{name}"] = vec(p[f"b{name}"]).to(dtype)
+        for name in ("wq", "wk", "bn_scale", "bn_bias"):
+            blk[name] = vec(p[name])
+        blk["wv"] = _oihw(np.asarray(p["wv"], np.float32)).to(dev)
+        return blk
+
+    out: Dict = {
+        "stem": [{"k": conv(s["k"]), "b": vec(s["b"]).to(dtype)}
+                 for s in tree["stem"]],
+        "stages": [],
+        "fc": {"k": _t(np.asarray(tree["fc"]["k"], np.float32).T).to(
+                   dev, dtype),
+               "b": vec(tree["fc"]["b"])},
+    }
+    for stage in tree["stages"]:
+        blocks = [block(stage["first"])]
+        interior = stage["interior"]
+        if interior is not None:
+            n = np.asarray(interior["wq"]).shape[0]
+            blocks += [block({k: np.asarray(v)[i]
+                              for k, v in interior.items()})
+                       for i in range(n)]
+        out["stages"].append(blocks)
+    return out
+
+
 def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
@@ -252,19 +331,17 @@ def tail_params_from_jax(block_params: Mapping) -> Dict[str, torch.Tensor]:
     _ln(sd, "normx", m["normx"])
     _ln(sd, "normo", m["normo"])
     sd["lambda_t"] = _t(m["lambda_t"]).reshape(-1)
-    sd["mrla.Wq.weight"] = _t(proj["wq"]).reshape(1, 1, -1)
-    sd["mrla.Wk.weight"] = _t(proj["wk"]).reshape(1, 1, -1)
-    sd["mrla.Wv.weight"] = _oihw(proj["wv"])
+    _projections(sd, "mrla", proj)
     return sd
 
 
 def vit_state_dict_from_jax(variables: Mapping,
                             variant: str = "light") -> Dict[str, torch.Tensor]:
     """``{"params"}`` of a Flax DeiT (numpy or array leaves) -> state_dict.
-    ``variant`` is ``"plain"`` (``VisionTransformer``, distilled or not) or
-    ``"light"`` (``ViTMRLA``)."""
-    if variant not in ("plain", "light"):
-        raise ValueError("variant must be 'plain' or 'light', got "
+    ``variant`` is ``"plain"`` (``VisionTransformer``, distilled or not),
+    ``"light"`` or ``"base"`` (``ViTMRLA``)."""
+    if variant not in ("plain", "light", "base"):
+        raise ValueError("variant must be 'plain', 'light' or 'base', got "
                          f"{variant!r}")
     params = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
@@ -284,11 +361,17 @@ def vit_state_dict_from_jax(variables: Mapping,
         _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
         _dense(sd, f"{pre}.mlp.fc1", p["mlp"]["fc1"])
         _dense(sd, f"{pre}.mlp.fc2", p["mlp"]["fc2"])
-        if ("mrla" in p) != (variant == "light"):
+        kind = ("plain" if "mrla" not in p
+                else "light" if "normo" in p["mrla"] else "base")
+        if kind != variant:
             raise ValueError(f"{name} does not fit variant={variant!r}")
         if variant == "light":
             for k, v in tail_params_from_jax(p).items():
                 sd[f"{pre}.mrla.{k}"] = v
+        elif variant == "base":
+            _ln(sd, f"{pre}.mrla.normx", p["mrla"]["normx"])
+            _projections(sd, f"{pre}.mrla.mrla",
+                         p["mrla"]["mrla"]["mrla"]["proj"])
     _ln(sd, "norm", params["norm"])
     _dense(sd, "head", params["head"])
     if "head_dist" in params:

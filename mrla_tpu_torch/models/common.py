@@ -6,7 +6,9 @@ scale 1, bias 0, eps 1e-5; the last BN of every residual branch (bn3) is
 zero-initialised when asked; Linear is U(±1/√fan_in) for weight and bias.
 
 Module names follow the reference implementation's ``state_dict`` keys, so
-the stem is two modules the model owns as ``conv1`` and ``bn1``, the
+the stem is two modules the model owns as ``conv1`` and ``bn1`` (the deep
+stem's ``conv1`` an ``nn.Sequential``: ``conv1.{0,3,6}`` convs,
+``conv1.{1,4}`` BNs), the
 shortcut an ``nn.Sequential`` (``downsample.0`` conv, ``downsample.1`` BN)
 and the classifier a top-level ``fc``.
 """
@@ -61,6 +63,21 @@ def stem7x7(width: int = 64, generator: Optional[torch.Generator] = None
         nn.Conv2d(3, width, 7, 2, padding=3, bias=False), generator
     )
     return conv, batch_norm(width)
+
+
+def deep_stem(stem_width: int = 32, out_width: int = 64,
+              generator: Optional[torch.Generator] = None
+              ) -> tuple[nn.Sequential, nn.BatchNorm2d]:
+    """MRLA-base's 3-conv stem: 3x3/2 -> BN -> ReLU -> 3x3 -> BN -> ReLU ->
+    3x3, and the BN after it (its ReLU and the max pool are applied by the
+    model)."""
+    conv = nn.Sequential(
+        conv3x3(3, stem_width, 2, generator), batch_norm(stem_width),
+        nn.ReLU(inplace=True),
+        conv3x3(stem_width, stem_width, generator=generator),
+        batch_norm(stem_width), nn.ReLU(inplace=True),
+        conv3x3(stem_width, out_width, generator=generator))
+    return conv, batch_norm(out_width)
 
 
 def downsample(in_ch: int, out_ch: int, stride: int,

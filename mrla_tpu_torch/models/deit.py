@@ -130,9 +130,8 @@ class ViTBlock(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """DeiT-style ViT, optionally distilled (dist token + second head)."""
-
-    block_cls = ViTBlock
+    """DeiT-style ViT, optionally distilled (dist token + second head);
+    ``block_cls`` builds its blocks (with ``block_kw``)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  num_classes: int = 1000, embed_dim: int = 768,
@@ -140,7 +139,8 @@ class VisionTransformer(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  distilled: bool = False, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None, **block_kw):
+                 generator: Optional[torch.Generator] = None,
+                 block_cls: type = ViTBlock, **block_kw):
         super().__init__()
         self.patch_size, self.num_heads = patch_size, num_heads
         self.distilled = distilled
@@ -157,10 +157,10 @@ class VisionTransformer(nn.Module):
             torch.empty(1, n_patches + num_tokens, embed_dim))
         trunc_normal_(self.pos_embed, generator)
         self.blocks = nn.ModuleList(
-            self.block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
-                           qkv_bias=qkv_bias, drop=drop_rate,
-                           attn_drop=attn_drop_rate, drop_path=dpr,
-                           generator=generator, **block_kw)
+            block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
+                      qkv_bias=qkv_bias, drop=drop_rate,
+                      attn_drop=attn_drop_rate, drop_path=dpr,
+                      generator=generator, **block_kw)
             for dpr in (drop_path_rate * i / max(1, depth - 1)
                         for i in range(depth)))
         self.norm = layer_norm(embed_dim)
@@ -176,13 +176,18 @@ class VisionTransformer(nn.Module):
         parts = [self.cls_token.expand(b, -1, -1)]
         if self.distilled:
             parts.append(self.dist_token.expand(b, -1, -1))
-        x = torch.cat(parts + [tokens], dim=1) + self.pos_embed
-        for blk in self.blocks:
-            x = blk(x)
+        x = self.run_blocks(torch.cat(parts + [tokens], dim=1)
+                            + self.pos_embed)
         x = self.norm(x)
         if self.distilled:
             return ((self.head(x[:, 0]) + self.head_dist(x[:, 1])) / 2).float()
         return self.head(x[:, 0]).float()
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The tokens [B, N, C] through every block."""
+        for blk in self.blocks:
+            x = blk(x)
+        return x
 
 
 def _vit(embed_dim, depth, num_heads, patch_size=16, **kw):

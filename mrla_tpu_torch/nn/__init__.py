@@ -1,3 +1,10 @@
-from mrla_tpu_torch.nn.layers import MRLALightLayer, MRLALightModule
+from mrla_tpu_torch.nn.layers import (
+    LALayer,
+    MRLABaseLayer,
+    MRLABaseModule,
+    MRLALightLayer,
+    MRLALightModule,
+)
 
-__all__ = ["MRLALightLayer", "MRLALightModule"]
+__all__ = ["LALayer", "MRLABaseLayer", "MRLABaseModule", "MRLALightLayer",
+           "MRLALightModule"]

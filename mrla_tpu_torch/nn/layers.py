@@ -1,9 +1,9 @@
-"""MRLA-light layers as ``nn.Module``s.
+"""MRLA layers as ``nn.Module``s: MRLA-light, MRLA-base and LA (eq. 4).
 
 Parameter names are the reference implementation's, so its published
 ``state_dict``s load unchanged: ``mrla.Wq.weight`` [1, 1, k],
 ``mrla.Wk.weight``, ``mrla.Wv.weight`` [C, 1, 3, 3] and ``lambda_t``
-[C, 1, 1].
+[C, 1, 1] (light; base has no λ), and LA's ``W{q,k,v}.weight``.
 
 Init matches the JAX package: Conv1d-uniform Wq/Wk (U(±1/√k)), kaiming
 normal fan_out Wv, λ ~ N(0, 1).
@@ -22,7 +22,13 @@ import torch
 from torch import nn
 
 from mrla_tpu_torch.ops.common import eca_kernel_size
-from mrla_tpu_torch.ops.mrla import MRLAParams, mrla_light_attention
+from mrla_tpu_torch.ops.mrla import (
+    MRLACache,
+    MRLAParams,
+    la_eq4_attention,
+    mrla_base_attention,
+    mrla_light_attention,
+)
 
 
 def _resolve_heads(channels: int, heads: Optional[int],
@@ -38,18 +44,16 @@ def _resolve_heads(channels: int, heads: Optional[int],
     return heads
 
 
-class MRLALightLayer(nn.Module):
-    """mrla_light_layer: sigmoid-gated single-position layer attention.
-    ``act_v`` is applied to V before the gate (DeiT: the exact GELU)."""
+class _Projections(nn.Module):
+    """The Q / K / V weights every MRLA variant holds: k-tap channel convs
+    Wq, Wk and the depthwise 3x3 Wv, with ``heads`` heads."""
 
     def __init__(self, channels: int, heads: Optional[int] = None,
                  dim_perhead: Optional[int] = None,
                  k_size: Optional[int] = None,
-                 act_v: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.heads = _resolve_heads(channels, heads, dim_perhead)
-        self.act_v = act_v
         k = k_size or eca_kernel_size(channels)
         self.Wq = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
         self.Wk = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
@@ -63,10 +67,25 @@ class MRLALightLayer(nn.Module):
             self.Wv.weight.normal_(0.0, math.sqrt(2.0 / (channels * 9)),
                                    generator=generator)
 
+    def params(self) -> MRLAParams:
+        return MRLAParams(self.Wq.weight, self.Wk.weight, self.Wv.weight)
+
+
+class MRLALightLayer(_Projections):
+    """mrla_light_layer: sigmoid-gated single-position layer attention.
+    ``act_v`` is applied to V before the gate (DeiT: the exact GELU)."""
+
+    def __init__(self, channels: int, heads: Optional[int] = None,
+                 dim_perhead: Optional[int] = None,
+                 k_size: Optional[int] = None,
+                 act_v: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(channels, heads, dim_perhead, k_size, generator)
+        self.act_v = act_v
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = MRLAParams(self.Wq.weight, self.Wk.weight, self.Wv.weight)
-        y = mrla_light_attention(x.permute(0, 2, 3, 1), params, self.heads,
-                                 act_v=self.act_v)
+        y = mrla_light_attention(x.permute(0, 2, 3, 1), self.params(),
+                                 self.heads, act_v=self.act_v)
         return y.permute(0, 3, 1, 2)
 
 
@@ -84,3 +103,49 @@ class MRLALightModule(nn.Module):
 
     def forward(self, xt: torch.Tensor, ot_1: torch.Tensor) -> torch.Tensor:
         return self.mrla(xt) + self.lambda_t.to(ot_1.dtype) * ot_1
+
+
+class MRLABaseLayer(_Projections):
+    """mrla_base_layer: attention over the stage's K/V cache, softmax over
+    the layer axis.  Takes an NCHW view and the cache (NHWC maps), returns
+    (out NCHW, the cache with this layer appended); ``cache=None`` starts a
+    stage in buffers for ``max_t`` layers."""
+
+    def forward(self, x: torch.Tensor, cache: Optional[MRLACache],
+                max_t: Optional[int] = None):
+        y, cache = mrla_base_attention(x.permute(0, 2, 3, 1), self.params(),
+                                       self.heads, cache, max_t)
+        return y.permute(0, 3, 1, 2), cache
+
+
+class MRLABaseModule(nn.Module):
+    """mrla_module (base): the base layer with ``dim_perhead`` channels a
+    head, one channel a head with ``channel_wise``."""
+
+    def __init__(self, channels: int, dim_perhead: int = 16,
+                 channel_wise: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mrla = MRLABaseLayer(
+            channels, dim_perhead=1 if channel_wise else dim_perhead,
+            generator=generator)
+
+    def forward(self, xt: torch.Tensor, cache: Optional[MRLACache],
+                max_t: Optional[int] = None):
+        return self.mrla(xt, cache, max_t)
+
+
+class LALayer(_Projections):
+    """la_layer (eq. 4): attention of the current map over the stacked
+    context of the stage's maps, keys and values recomputed from all of
+    them.  Takes NCHW x and the context [B, t, H, W, C] (NHWC maps)."""
+
+    def __init__(self, channels: int, dim_perhead: int = 32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(channels, dim_perhead=dim_perhead,
+                         generator=generator)
+
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        y = la_eq4_attention(x.permute(0, 2, 3, 1), ctx, self.params(),
+                             self.heads)
+        return y.permute(0, 3, 1, 2)

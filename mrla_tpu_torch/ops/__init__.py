@@ -5,14 +5,27 @@ from mrla_tpu_torch.ops.common import (
     global_avg_pool,
     max_pool_same_torch,
 )
-from mrla_tpu_torch.ops.mrla import MRLAParams, mrla_light_attention
+from mrla_tpu_torch.ops.mrla import (
+    MRLACache,
+    MRLAParams,
+    cache_buffers,
+    la_eq4_attention,
+    mrla_base_attention,
+    mrla_base_attention_fixed,
+    mrla_light_attention,
+)
 
 __all__ = [
+    "MRLACache",
     "MRLAParams",
+    "cache_buffers",
     "channel_conv1d",
     "depthwise_conv3x3",
     "eca_kernel_size",
     "global_avg_pool",
+    "la_eq4_attention",
     "max_pool_same_torch",
+    "mrla_base_attention",
+    "mrla_base_attention_fixed",
     "mrla_light_attention",
 ]

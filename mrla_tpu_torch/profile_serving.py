@@ -3,10 +3,14 @@
 
     python3 -m mrla_tpu_torch.profile_serving [--use-stage4]
     python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlal_small_patch16_224
+    python3 -m mrla_tpu_torch.profile_serving --arch resnet50_mrlab [--use-scan]
+    python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlab_small_patch16_224
     python3 -m mrla_tpu_torch.profile_serving --preset faster_rcnn_r50mrlal_fpn_1x_coco
 
-Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine; a
-``deit_*`` / ``deit_mrlal_*`` arch through the DeiT engine) at 224 px in
+Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine;
+resnet50_mrlab through the eq. 6 engine, ``--use-scan`` for its masked
+cache form; a ``deit_*`` / ``deit_mrlal_*`` / ``deit_mrlab_*`` arch through
+the DeiT engine) at 224 px in
 bf16, from seeded weights and images (``mrla_tpu_torch/testing.py``), on
 one CUDA card; traces ``FORWARDS`` forwards of batch ``BATCH`` with
 torch.profiler after a warm-up, and prints the device time by kernel group
@@ -15,7 +19,11 @@ idle share.  With ``--use-stage4`` the traced resnet forwards take the
 stage-kernel route.  For resnet50_mrlal it then reads the device time of
 the last stage alone on both routes (a trace of the engine's block loop on
 the stage-3 output map); for a ``deit_mrlal_*`` arch, the device time of
-each pass of the token-tail kernel alone at the three published widths.
+each pass of the token-tail kernel alone at the three published widths;
+for resnet50_mrlab, at each stage's map, the device time of the pieces of
+the eq. 6 cache alone: a value map's write into the cache buffer, the
+depthwise 3x3 that makes it, and the weighted sum over t at every t of the
+stage (per forward, summed over the stage's blocks).
 
 With ``--preset`` (a two-stage detection preset) it serves
 ``two_stage_detections`` at 800 x 1344, batch 8, bf16 from a seeded
@@ -77,6 +85,26 @@ DEIT_GROUPS = (
     ("other elementwise (residual adds, pos)",
      ("elementwise", "vectorized", "unrolled")),
 )
+
+
+MRLAB_GROUPS = (
+    ("fp32 multiply-adds (sums over t, BN affine on attn)", ("addcmul",)),
+    ("depthwise 3x3 (value maps)", ("conv2d_c1_k1", "depthwise")),
+    ("convolution", GROUPS[3][1]),
+    ("softmax over t", ("softmax",)),
+    ("reduction (GAP, head)", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("copies and casts (cache writes, accumulator casts)", ("copy",)),
+    ("elementwise (bias, ReLU, residual, BN affine)",
+     ("elementwise", "vectorized", "unrolled")),
+)
+DEIT_MRLAB_GROUPS = (
+    ("eq. 6 sum over t (fp32 multiply-adds)", ("addcmul",)),
+    ("depthwise 3x3 (value maps)", ("conv2d_c1_k1", "depthwise")),
+) + DEIT_GROUPS
+# resnet50_mrlab at 224 px: each stage's map (H, W, C) and blocks
+MRLAB_STAGES = ((56, 56, 256, 3), (28, 28, 512, 4), (14, 14, 1024, 6),
+                (7, 7, 2048, 3))
 
 
 DETECT_GROUPS = (
@@ -165,6 +193,45 @@ def tail_alone(c: int) -> dict:
             round(t * 1e3 / STAGE_RUNS, 2)
             for name, (t, _) in device_ms(prof).items()
             if "deit_tail_" in name}
+
+
+def mrlab_cache_alone() -> None:
+    """Device ms per forward of the eq. 6 cache's pieces alone at each
+    stage's map of resnet50_mrlab (224 px, BATCH, bf16): the value maps'
+    writes into the buffer, their depthwise 3x3, and the weighted sums over
+    t = 1 .. blocks."""
+    from mrla_tpu_torch.ops.common import depthwise_conv3x3
+    from mrla_tpu_torch.ops.mrla import _weighted_sum, cache_buffers
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = defaultdict(float)
+    print(f"eq. 6 cache pieces alone, bs{BATCH} bf16 (device ms per "
+          f"forward, {STAGE_RUNS} traced runs each):")
+    for h, w, c, n in MRLAB_STAGES:
+        _, v_buf = cache_buffers(BATCH, n, h, w, c, torch.bfloat16, "cuda")
+        v_buf.normal_(generator=gen)
+        x = torch.randn(BATCH, h, w, c, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        wv = torch.randn(c, 1, 3, 3, generator=gen, device="cuda")
+        attn = torch.softmax(torch.randn(BATCH, c // 16, n, generator=gen,
+                                         device="cuda"), -1)
+        pieces = {
+            "cache writes": (n, lambda: v_buf[:, n - 1].copy_(x)),
+            "depthwise 3x3": (n, lambda: depthwise_conv3x3(x, wv)),
+        }
+        for t in range(1, n + 1):
+            pieces[f"sum over t={t}"] = (
+                1, lambda t=t: _weighted_sum(attn, v_buf, t))
+        row = {}
+        for name, (times, fn) in pieces.items():
+            dev_ms = stage_times(fn)[0] * times
+            key = "sums over t" if name.startswith("sum") else name
+            row[key] = row.get(key, 0.0) + dev_ms
+            total[key] += dev_ms
+        print(f"  [{BATCH},{h},{w},{c}] x {n} blocks: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()))
+    print("  all stages: " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in total.items()))
 
 
 def stage_times(fn) -> tuple[float, float, float]:
@@ -282,9 +349,12 @@ def train_profile(preset: str) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--arch", default="resnet50_mrlal",
-                        help="resnet50_mrlal or a deit_* / deit_mrlal_* arch")
+                        help="resnet50_mrlal, resnet50_mrlab or a deit_* / "
+                             "deit_mrlal_* / deit_mrlab_* arch")
     parser.add_argument("--use-stage4", action="store_true",
                         help="trace resnet50_mrlal's stage-kernel route")
+    parser.add_argument("--use-scan", action="store_true",
+                        help="trace resnet50_mrlab's masked cache form")
     parser.add_argument("--preset", default=None,
                         help="a two-stage detection preset: trace "
                              "two_stage_detections at 800 x 1344, bs8")
@@ -332,6 +402,18 @@ def main() -> int:
             deit_serving_model(args.arch, 0), device="cuda")
         forward = lambda xb: deit_forward(params, xb)
         route = ""
+    elif args.arch == "resnet50_mrlab":
+        from mrla_tpu_torch.serving import (
+            prepare_mrlab_inference_params,
+            resnet_mrlab_forward,
+        )
+        from mrla_tpu_torch.testing import mrlab_serving_model
+
+        params = prepare_mrlab_inference_params(mrlab_serving_model(0),
+                                                device="cuda")
+        forward = lambda xb: resnet_mrlab_forward(params, xb,
+                                                  use_scan=args.use_scan)
+        route = f", use_scan={args.use_scan}"
     elif args.arch == "resnet50_mrlal":
         params = attach_stage4(prepare_inference_params(
             serving_model(0), dtype=torch.bfloat16, device="cuda"))
@@ -340,8 +422,10 @@ def main() -> int:
         route = f", use_stage4={args.use_stage4}"
     else:
         parser.error(f"no serving profile for --arch {args.arch}")
+    mrlab = "mrlab" in args.arch
     groups_of_arch = (DETECT_GROUPS if args.preset
-                      else DEIT_GROUPS if deit else GROUPS)
+                      else (DEIT_MRLAB_GROUPS if mrlab else DEIT_GROUPS)
+                      if deit else MRLAB_GROUPS if mrlab else GROUPS)
     gen = torch.Generator().manual_seed(1)
     batches = [images(gen, batch, DET_HW if args.preset else 224).cuda()
                for _ in range(FORWARDS)]
@@ -394,8 +478,11 @@ def main() -> int:
                 dev_ms, n, wall = stage_times(fn)
                 print(f"  {name:34s} {dev_ms:9.4f} {n:7.1f} {wall:9.3f}")
         return 0
+    if mrlab and not deit:
+        mrlab_cache_alone()
+        return 0
     if deit:
-        if params["dim_mrla"] is not None:
+        if params["variant"] == "light":
             print(f"token tail alone, bs{BATCH} (device us per launch of "
                   f"each pass, {STAGE_RUNS} traced launches): "
                   + "; ".join(f"C={c} {tail_alone(c)}"

@@ -7,6 +7,10 @@ from mrla_tpu_torch.serving.detect import (
     prepare_detect_params,
     two_stage_detections,
 )
+from mrla_tpu_torch.serving.resnet_mrlab import (
+    prepare_mrlab_inference_params,
+    resnet_mrlab_forward,
+)
 from mrla_tpu_torch.serving.resnet_mrlal import (
     attach_stage4,
     prepare_inference_params,
@@ -16,6 +20,7 @@ from mrla_tpu_torch.serving.tail_routes import resnet_mrlal_tail_forward
 
 __all__ = ["attach_stage4", "deit_forward", "detect_forward",
            "prepare_deit_inference_params", "prepare_detect_params",
-           "prepare_inference_params", "resnet_mrlal_forward",
+           "prepare_inference_params", "prepare_mrlab_inference_params",
+           "resnet_mrlab_forward", "resnet_mrlal_forward",
            "resnet_mrlal_tail_forward",
            "two_stage_detections"]

@@ -11,7 +11,14 @@ nothing to fold; what the engine does for serving:
   * for a ``deit_mrlal_*`` arch every block's token tail (LN_x, LN_o, the
     gate, the depthwise 3x3 with GELU, λ, the cls bypass and the residual)
     runs in the hand-written CUDA kernel of ``kernels/deit_token_tail.py``;
-    plain ``deit_*`` archs run the same engine without a tail.
+    plain ``deit_*`` archs run the same engine without a tail;
+  * for a ``deit_mrlab_*`` arch every block ends in the MRLA-base token
+    module in plain PyTorch, as the JAX package computes it (no Pallas
+    kernel there either): LayerNorm ``normx`` with fp32 statistics, the
+    base attention on the token grid against the cache of the blocks before
+    it (``ops.mrla.mrla_base_attention``, buffers allocated once a cache
+    period), the normalised cls row passed through; the cache restarts
+    every ``mrlab_size`` blocks and ``dim_mrla`` sets the heads.
 
 Images are NHWC; tokens are [B, N, C].  On CPU tensors the kernel's plain
 version runs instead, which is how the tests drive this engine.
@@ -19,6 +26,7 @@ version runs instead, which is how the tests drive this engine.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Union
 
 import torch
@@ -31,6 +39,8 @@ from mrla_tpu_torch.kernels.deit_token_tail import (
 )
 from mrla_tpu_torch.models.deit import LN_EPS, VisionTransformer, attention
 from mrla_tpu_torch.models.registry import create_model
+from mrla_tpu_torch.ops.mrla import MRLACache, MRLAParams, mrla_base_attention
+from mrla_tpu_torch.serving.microbatch import chains
 
 
 def prepare_deit_inference_params(
@@ -42,9 +52,10 @@ def prepare_deit_inference_params(
 ) -> Dict:
     """Cast and pack; returns the serving params on ``device``.
 
-    ``arch_or_model`` is a registered ``deit_*`` / ``deit_mrlal_*`` name
-    (built with ``model_kw``) or a model instance; it gives the structure
-    (patch size, heads, distillation, ``dim_mrla``).  ``state_dict`` gives
+    ``arch_or_model`` is a registered ``deit_*`` / ``deit_mrlal_*`` /
+    ``deit_mrlab_*`` name (built with ``model_kw``) or a model instance; it
+    gives the structure (patch size, heads, distillation, ``dim_mrla``, the
+    MRLA variant and ``mrlab_size``).  ``state_dict`` gives
     the weights and must hold exactly the model's keys; None takes the
     instance's own."""
     dev = resolve_device(device)
@@ -74,6 +85,8 @@ def prepare_deit_inference_params(
     out: Dict = {
         "num_heads": model.num_heads,
         "dim_mrla": getattr(model, "dim_mrla", None),
+        "variant": getattr(model, "variant", None),
+        "mrlab_size": getattr(model, "mrlab_size", None),
         "patch": {
             "k": cast("patch_embed.proj.weight").contiguous(
                 memory_format=torch.channels_last),
@@ -97,8 +110,15 @@ def prepare_deit_inference_params(
             "fc1": affine(f"{pre}.mlp.fc1"),
             "fc2": affine(f"{pre}.mlp.fc2"),
         }
-        if out["dim_mrla"] is not None:
+        if out["variant"] == "light":
             blk["tail"] = pack_tail_params(sd, f"{pre}.mrla.", dev)
+        elif out["variant"] == "base":
+            blk["mrlab"] = {
+                "normx": affine(f"{pre}.mrla.normx", fp32=True),
+                "params": MRLAParams(*(
+                    sd[f"{pre}.mrla.mrla.W{w}.weight"].to(dev)
+                    for w in "qkv")),
+            }
         out["blocks"].append(blk)
     return out
 
@@ -124,11 +144,21 @@ def _block(x: torch.Tensor, p: Dict, num_heads: int,
     return x
 
 
-@torch.inference_mode()
-def deit_forward(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, 3] images (any float dtype; cast to the param dtype) on the
-    params' device -> logits [B, classes] fp32.  A distilled model gives the
-    mean of its two heads."""
+def _mrlab_tail(x: torch.Tensor, p: Dict, dim_mrla: int,
+                cache: Optional[MRLACache], max_t: int):
+    """x + the MRLA-base token module on x -> (x, the cache with this
+    block appended)."""
+    b, n, c = x.shape
+    normx = _layer_norm(x, *p["normx"])
+    grid = normx[:, 1:].reshape(b, math.isqrt(n - 1), -1, c)
+    attn, cache = mrla_base_attention(grid, p["params"], c // dim_mrla,
+                                      cache, max_t)
+    tail = torch.cat([normx[:, :1], attn.reshape(b, n - 1, c)], dim=1)
+    return x.add_(tail), cache
+
+
+def _tokens_impl(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Patch embedding and every block: the cls (and dist) rows."""
     patch = params["patch"]
     if x.device != patch["k"].device:
         raise ValueError(f"images are on {x.device}, params on "
@@ -139,10 +169,30 @@ def deit_forward(params: Dict, x: torch.Tensor) -> torch.Tensor:
     grid = y.flatten(2).transpose(1, 2)
     prefix = params["tokens"].expand(grid.shape[0], -1, -1)
     x = torch.cat([prefix, grid], dim=1) + params["pos"]
-    for p in params["blocks"]:
+    blocks, period = params["blocks"], params["mrlab_size"]
+    for i, p in enumerate(blocks):
         x = _block(x, p, params["num_heads"], params["dim_mrla"])
-    # only the cls (and dist) rows reach a head
-    x = _layer_norm(x[:, :prefix.shape[1]], *params["norm"])
+        if "mrlab" in p:
+            if i % period == 0:  # init_cell
+                cache = None
+            x, cache = _mrlab_tail(x, p["mrlab"], params["dim_mrla"], cache,
+                                   min(period, len(blocks) - i))
+    return x[:, :prefix.shape[1]]  # only these rows reach a head
+
+
+@torch.inference_mode()
+def deit_forward(params: Dict, x: torch.Tensor,
+                 microbatch: int = 0) -> torch.Tensor:
+    """[B, H, W, 3] images (any float dtype; cast to the param dtype) on the
+    params' device -> logits [B, classes] fp32.  A distilled model gives the
+    mean of its two heads.  ``microbatch`` > 0 serves the batch as chains
+    of that many images, one after another, and the head takes their rows
+    together (``serving/microbatch.py``; 0, the default, serves it
+    unsplit)."""
+    parts = chains(x, microbatch)
+    x = (_tokens_impl(params, x) if parts is None
+         else torch.cat([_tokens_impl(params, p) for p in parts]))
+    x = _layer_norm(x, *params["norm"])
     logits = F.linear(x[:, 0], *params["head"])
     if "head_dist" in params:
         logits = (logits + F.linear(x[:, 1], *params["head_dist"])) / 2

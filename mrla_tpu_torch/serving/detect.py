@@ -49,6 +49,7 @@ from mrla_tpu_torch.detect.two_stage import (
 )
 from mrla_tpu_torch.kernels.roialign_patch import roi_align_patch
 from mrla_tpu_torch.ops.common import conv2d_nhwc
+from mrla_tpu_torch.serving.microbatch import chains
 from mrla_tpu_torch.serving.resnet_mrlal import (
     _trunk_impl,
     prepare_inference_params,
@@ -132,12 +133,22 @@ def prepare_detect_params(
 @torch.inference_mode()
 def detect_forward(serving_params: Dict, x: torch.Tensor,
                    layers: Sequence[int] = (3, 4, 6, 3),
-                   stage=run_stage) -> tuple:
+                   stage=run_stage, microbatch: int = 0) -> tuple:
     """[B, H, W, 3] images on the params' device -> the pyramid P2..P6,
-    NHWC in the serving dtype."""
-    feats = stage("backbone", _trunk_impl, serving_params["trunk"], x,
-                  layers, 32)
-    return stage("FPN", fpn_mod.fpn_forward, serving_params["neck"], feats)
+    NHWC in the serving dtype.  ``microbatch`` > 0 runs trunk and FPN as
+    chains of that many images, one after another
+    (``serving/microbatch.py``; 0 serves the batch unsplit)."""
+    def one(images):
+        feats = stage("backbone", _trunk_impl, serving_params["trunk"],
+                      images, layers, 32)
+        return stage("FPN", fpn_mod.fpn_forward, serving_params["neck"],
+                     feats)
+
+    parts = chains(x, microbatch)
+    if parts is None:
+        return one(x)
+    pyramids = [one(part) for part in parts]
+    return tuple(torch.cat(level) for level in zip(*pyramids))
 
 
 def rpn_head(p: Dict, feats: Sequence[torch.Tensor]) -> list:

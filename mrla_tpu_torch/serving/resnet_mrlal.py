@@ -53,6 +53,7 @@ from mrla_tpu_torch.kernels.mrla_stage4 import (
 )
 from mrla_tpu_torch.ops.common import conv2d_nhwc as _conv
 from mrla_tpu_torch.ops.common import max_pool_same_torch
+from mrla_tpu_torch.serving.microbatch import chains
 
 BN_EPS = 1e-5
 MEGATAIL_MIN_W = 28
@@ -61,6 +62,40 @@ MEGATAIL_MIN_W = 28
 def _bn_affine(sd: Mapping, prefix: str):
     s = sd[f"{prefix}.weight"] / torch.sqrt(sd[f"{prefix}.running_var"] + BN_EPS)
     return s, sd[f"{prefix}.bias"] - sd[f"{prefix}.running_mean"] * s
+
+
+def _float_state_dict(model_or_state_dict) -> Dict[str, torch.Tensor]:
+    """A model's or a state_dict's tensors as fp32 CPU copies, without a
+    ``module.`` prefix or BN ``num_batches_tracked`` entries."""
+    src = (model_or_state_dict.state_dict()
+           if isinstance(model_or_state_dict, nn.Module)
+           else model_or_state_dict)
+    return {k.removeprefix("module."): v.detach().to("cpu", torch.float32)
+            for k, v in src.items() if not k.endswith("num_batches_tracked")}
+
+
+def _folded_conv(sd: Mapping, kernel_key: str, bn_prefix: str, dev,
+                 dtype: torch.dtype):
+    """(kernel · BN scale, BN bias) in ``dtype`` on ``dev``; the kernel
+    channels_last."""
+    s, b = _bn_affine(sd, bn_prefix)
+    k = sd[kernel_key] * s[:, None, None, None]
+    return (k.to(dev, dtype).contiguous(memory_format=torch.channels_last),
+            b.to(dev, dtype))
+
+
+def _check_layers(sd: Mapping, layers: Sequence[int]) -> None:
+    """Every layer{s}.{b} block must be consumed: a subset would serve a
+    truncated network with valid shapes."""
+    expect = {f"layer{s + 1}.{b}" for s, n in enumerate(layers)
+              for b in range(n)}
+    have = {".".join(k.split(".")[:2]) for k in sd if k.startswith("layer")}
+    if have != expect:
+        raise ValueError(
+            f"layers={tuple(layers)} does not match the state_dict: "
+            f"missing={sorted(expect - have)[:3]} "
+            f"extra={sorted(have - expect)[:3]}"
+        )
 
 
 def prepare_inference_params(
@@ -78,32 +113,14 @@ def prepare_inference_params(
     4x4 stride-1 kernel on a space-to-depth input (2x2 pixel blocks moved
     into 12 channels), which ``_stem`` takes for even-sized images."""
     dev = resolve_device(device)
-    src = (model_or_state_dict.state_dict()
-           if isinstance(model_or_state_dict, nn.Module)
-           else model_or_state_dict)
-    sd = {k.removeprefix("module."): v.detach().to("cpu", torch.float32)
-          for k, v in src.items() if not k.endswith("num_batches_tracked")}
-
-    def conv(kernel_key: str, bn_prefix: str):
-        s, b = _bn_affine(sd, bn_prefix)
-        k = sd[kernel_key] * s[:, None, None, None]
-        return (k.to(dev, dtype).contiguous(memory_format=torch.channels_last),
-                b.to(dev, dtype))
+    sd = _float_state_dict(model_or_state_dict)
+    conv = lambda kernel_key, bn_prefix: _folded_conv(
+        sd, kernel_key, bn_prefix, dev, dtype)
 
     def vec(t: torch.Tensor) -> torch.Tensor:
         return t.to(dev, torch.float32).contiguous()
 
-    # Every layer{s}.{b} block must be consumed: a subset would serve a
-    # truncated network with valid shapes.
-    expect = {f"layer{s + 1}.{b}" for s, n in enumerate(layers)
-              for b in range(n)}
-    have = {".".join(k.split(".")[:2]) for k in sd if k.startswith("layer")}
-    if have != expect:
-        raise ValueError(
-            f"layers={tuple(layers)} does not match the state_dict: "
-            f"missing={sorted(expect - have)[:3]} "
-            f"extra={sorted(have - expect)[:3]}"
-        )
+    _check_layers(sd, layers)
 
     out: Dict = {}
     k, b = conv("conv1.weight", "bn1")
@@ -249,14 +266,18 @@ def _blocks_impl(serving_params: Dict, y: torch.Tensor,
     return outs
 
 
+def _check_device(x: torch.Tensor, param: torch.Tensor) -> None:
+    if x.device != param.device:
+        raise ValueError(f"images are on {x.device}, params on "
+                         f"{param.device}")
+
+
 def _trunk_impl(serving_params: Dict, x: torch.Tensor,
                 layers: Sequence[int], dim_perhead: int,
                 use_stage4: bool = False) -> list:
     """Stem and all blocks; the per-stage outputs [C2, C3, C4, C5]."""
     stem = serving_params["stem"]
-    if x.device != stem["k"].device:
-        raise ValueError(f"images are on {x.device}, params on "
-                         f"{stem['k'].device}")
+    _check_device(x, stem["k"])
     y = _stem(x.to(stem["k"].dtype), stem)
     return _blocks_impl(serving_params, y, layers, dim_perhead, use_stage4)
 
@@ -274,12 +295,32 @@ def resnet_mrlal_forward(
     layers: Sequence[int] = (3, 4, 6, 3),
     dim_perhead: int = 32,
     use_stage4: bool = False,
+    microbatch: int = 0,
+    shared_stem: bool = True,
 ) -> torch.Tensor:
     """[B, H, W, 3] images (any float dtype; cast to the param dtype) on the
     params' device -> logits [B, classes] fp32.
 
     ``use_stage4=True`` sends the final stage through the stage kernel when
     the params carry ``"stage4"`` (:func:`attach_stage4`) and the stage's map
-    is 7x7 (224 px images); otherwise the per-block kernels run."""
-    y = _trunk_impl(serving_params, x, layers, dim_perhead, use_stage4)[-1]
+    is 7x7 (224 px images); otherwise the per-block kernels run.
+
+    ``microbatch`` > 0 serves the batch as chains of that many images, one
+    after another (``serving/microbatch.py``; 0, the default, serves it
+    unsplit).  With ``shared_stem`` the stem and max pool run on the whole
+    batch and the chains start after them; the head takes the chains'
+    maps together."""
+    parts = chains(x, microbatch)
+    if parts is None:
+        y = _trunk_impl(serving_params, x, layers, dim_perhead,
+                        use_stage4)[-1]
+    else:
+        trunk = _trunk_impl
+        if shared_stem:
+            stem = serving_params["stem"]
+            _check_device(x, stem["k"])
+            parts = _stem(x.to(stem["k"].dtype), stem).split(microbatch)
+            trunk = _blocks_impl
+        y = torch.cat([trunk(serving_params, part, layers, dim_perhead,
+                             use_stage4)[-1] for part in parts])
     return _head_impl(serving_params, y)

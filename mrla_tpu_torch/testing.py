@@ -10,6 +10,9 @@ every residual branch idle), the BN statistics are set from a pass over
 seeded images, and the images are smooth colour fields with their own
 contrast and colour cast.
 
+``mrlab_serving_model`` (the resnet MRLA-base archs): the same, with the
+bn_mrla scales spread too, so that the cross-layer term reaches the logits.
+
 ``deit_serving_model``: a DeiT's LayerNorms need no calibration, but its
 weights are redrawn wider than the init's (``spread_deit_weights``), so that
 the logits show what every part of the trunk computed.
@@ -50,17 +53,16 @@ def images(gen: torch.Generator, n: int, px=224) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def serving_model(seed: int) -> torch.nn.Module:
-    """resnet50_mrlal on the CPU from ``seed``, in eval mode, with bn3
-    scales drawn from U(0.1, 0.5) and the BN statistics averaged over a
-    pass of 16 seeded 224 px images."""
-    gen = torch.Generator().manual_seed(seed)
-    model = create_model("resnet50_mrlal", device="cpu", generator=gen)
+def _calibrated(model: torch.nn.Module, gen: torch.Generator,
+                spread=("bn3",)) -> torch.nn.Module:
+    """``model`` in eval mode, the scales of the BNs whose names end in one
+    of ``spread`` drawn from U(0.1, 0.5) and every BN's statistics averaged
+    over a pass of 16 seeded 224 px images."""
     bns = [(n, m) for n, m in model.named_modules()
            if isinstance(m, torch.nn.BatchNorm2d)]
     with torch.no_grad():
         for name, bn in bns:
-            if name.endswith("bn3"):
+            if name.endswith(spread):
                 bn.weight.uniform_(0.1, 0.5, generator=gen)
             bn.reset_running_stats()
             bn.momentum = None  # cumulative average over the calibration
@@ -68,6 +70,26 @@ def serving_model(seed: int) -> torch.nn.Module:
     for _, bn in bns:
         bn.momentum = 0.1
     return model.eval()
+
+
+def serving_model(seed: int) -> torch.nn.Module:
+    """resnet50_mrlal on the CPU from ``seed``, in eval mode, with bn3
+    scales drawn from U(0.1, 0.5) and the BN statistics averaged over a
+    pass of 16 seeded 224 px images."""
+    gen = torch.Generator().manual_seed(seed)
+    return _calibrated(create_model("resnet50_mrlal", device="cpu",
+                                    generator=gen), gen)
+
+
+def mrlab_serving_model(seed: int, arch: str = "resnet50_mrlab"
+                        ) -> torch.nn.Module:
+    """A registered ``resnet*_mrlab*`` arch on the CPU from ``seed``, in
+    eval mode, with bn3 and bn_mrla scales drawn from U(0.1, 0.5), so that
+    every residual branch and the cross-layer term reach the logits, and
+    the BN statistics averaged over a pass of 16 seeded 224 px images."""
+    gen = torch.Generator().manual_seed(seed)
+    return _calibrated(create_model(arch, device="cpu", generator=gen), gen,
+                       spread=("bn3", "bn_mrla"))
 
 
 def stage4_case(gen: torch.Generator, b: int, cin: int = 1024,
@@ -148,8 +170,8 @@ def spread_deit_weights(model: torch.nn.Module,
 
 
 def deit_serving_model(arch: str, seed: int, **model_kw) -> torch.nn.Module:
-    """A registered ``deit_*`` / ``deit_mrlal_*`` arch on the CPU from
-    ``seed``, in eval mode, its weights spread by
+    """A registered ``deit_*`` / ``deit_mrlal_*`` / ``deit_mrlab_*`` arch on
+    the CPU from ``seed``, in eval mode, its weights spread by
     :func:`spread_deit_weights`."""
     gen = torch.Generator().manual_seed(seed)
     model = create_model(arch, device="cpu", generator=gen, **model_kw)

@@ -4,7 +4,9 @@ One set of weights feeds both packages: the port's own init, spread by
 ``spread_deit_weights`` so that LayerNorm affines, gates and heads do work,
 goes to Flax through the JAX package's ``convert_vit_state_dict``; a Flax
 init goes to the port through ``vit_state_dict_from_jax``.  Models are
-built from the classes at a small size (embed 64, depth 2, 2 heads) at
+built from the classes at a small size (embed 64, depth 2, 2 heads; the
+MRLA-base variant at depth 6, so that its cache restarts once at block 4
+and block 5's attention carries that block's grid rows to the cls row) at
 224 px, so N = 197 as at full size.  fp32 tolerances are the resnet
 slice's (``rtol=2e-3, atol=3e-4``); the bf16 one is the JAX package's
 serving test's."""
@@ -37,19 +39,22 @@ KINDS = {
     "plain": (VisionTransformer, FlaxViT, {}, "plain"),
     "distilled": (VisionTransformer, FlaxViT, {"distilled": True}, "plain"),
     "light": (ViTMRLA, FlaxViTMRLA, {}, "light"),
+    "base": (ViTMRLA, FlaxViTMRLA, {"variant": "base", "depth": 6}, "base"),
 }
 
 
+def _kw(kind):
+    return {**SMALL, **KINDS[kind][2]}
+
+
 def _port_model(kind, seed):
-    cls, _, extra, _ = KINDS[kind]
     gen = torch.Generator().manual_seed(seed)
-    return spread_deit_weights(cls(**SMALL, **extra, generator=gen),
+    return spread_deit_weights(KINDS[kind][0](**_kw(kind), generator=gen),
                                gen).eval()
 
 
 def _flax_model(kind, dtype=jnp.float32):
-    _, cls, extra, _ = KINDS[kind]
-    return cls(**SMALL, **extra, dtype=dtype)
+    return KINDS[kind][1](**_kw(kind), dtype=dtype)
 
 
 def _to_flax(port, kind):
@@ -81,7 +86,7 @@ def test_vit_state_dict_from_jax_roundtrip(kind):
     sd = vit_state_dict_from_jax(variables, variant)
     _assert_trees_equal(convert_vit_state_dict(sd, variant), variables)
     # and the keys and shapes are exactly the port model's
-    port_cls(**SMALL, **extra).load_state_dict(sd, strict=True)
+    port_cls(**_kw(kind)).load_state_dict(sd, strict=True)
 
 
 def test_vit_state_dict_from_jax_rejects_a_wrong_variant():
@@ -121,7 +126,7 @@ def test_model_from_a_flax_init_matches_flax():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("kind", ["light", "distilled"])
+@pytest.mark.parametrize("kind", ["light", "distilled", "base"])
 def test_engine_fp32_matches_jax_engine(kind):
     port = _port_model(kind, seed=3)
     variables = jax.tree.map(jnp.asarray, _to_flax(port, kind))
@@ -264,3 +269,62 @@ def test_port_init_matches_the_jax_init_recipe():
     x = torch.from_numpy(_images(6, n=1))
     with torch.no_grad():
         assert torch.equal(dropped(x), kept(x))
+
+
+@pytest.mark.parametrize("kind", ["light", "base"])
+def test_engine_microbatch_chains_bitwise_equal(kind):
+    """Chains of 2 images give the unsplit logits bit for bit on the CPU,
+    as the JAX engine's chains do; a microbatch that does not divide the
+    batch serves it unsplit."""
+    params = prepare_deit_inference_params(_port_model(kind, seed=7),
+                                           device="cpu", dtype=torch.float32)
+    x = torch.from_numpy(_images(7, n=4))
+    full = deit_forward(params, x)
+    assert torch.equal(full, deit_forward(params, x, microbatch=2))
+    assert torch.equal(full, deit_forward(params, x, microbatch=3))
+
+
+def test_base_variant_restarts_its_cache_every_four_blocks():
+    """Block 4 of the MRLA-base variant attends to itself only: its cache
+    starts anew, so a tail that saw the first four blocks' maps would give
+    other logits (block 5's attention carries them to the cls row); and the
+    engine serves the same restart."""
+    port = _port_model("base", seed=8)
+    params = prepare_deit_inference_params(port, device="cpu",
+                                           dtype=torch.float32)
+    assert params["variant"] == "base" and params["mrlab_size"] == 4
+    assert "tail" not in params["blocks"][0]
+    x = torch.from_numpy(_images(8))
+    with torch.no_grad():
+        want = port(x)
+    got = deit_forward(params, x)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    port.mrlab_size = params["mrlab_size"] = 6
+    with torch.no_grad():
+        never = port(x)
+    torch.testing.assert_close(deit_forward(params, x), never, rtol=RTOL,
+                               atol=ATOL)
+    # and the restart shows in the logits, beyond the tolerance above
+    assert not torch.allclose(never, want, rtol=RTOL, atol=ATOL)
+
+
+MRLAB_ARCHS = {"deit_mrlab_tiny_patch16_224": (192, 3),
+               "deit_mrlab_small_patch16_224": (384, 6),
+               "deit_mrlab_base_patch16_224": (768, 12)}
+
+
+@pytest.mark.parametrize("arch", list(MRLAB_ARCHS))
+def test_registered_mrlab_archs_have_the_published_widths(arch):
+    embed, heads = MRLAB_ARCHS[arch]
+    assert arch in list_models()
+    with torch.device("meta"):
+        model = create_model(arch, device="meta")
+    assert (model.variant, model.mrlab_size, model.dim_mrla) == ("base", 4,
+                                                                 16)
+    assert len(model.blocks) == 12 and model.num_heads == heads
+    # the reference's dpr = [0.1] * 12, stored for training
+    assert all(b.drop_path == 0.1 for b in model.blocks)
+    tail = model.blocks[0].mrla
+    assert tail.mrla.heads == embed // 16 and tail.normx.eps == 1e-6
+    assert not hasattr(tail, "normo") and not hasattr(tail, "lambda_t")
+    assert tail.mrla.Wv.weight.shape == (embed, 1, 3, 3)

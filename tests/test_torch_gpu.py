@@ -1095,3 +1095,60 @@ def test_tail_routes_launch_their_kernels(cuda):
         assert torch.isfinite(logits[tail]).all()
         assert torch.equal(logits[tail].argmax(-1), want.argmax(-1)), tail
     assert torch.equal(logits["copy"], logits["block_tail"])
+
+
+def _mrlab_case(layers, seed=0):
+    """A small resnet_mrlab with bn3 and bn_mrla scales from U(0.1, 0.5) and
+    running variances from U(0.5, 1.5), and 4 seeded 64 px images."""
+    from mrla_tpu_torch.models import ResNetMRLABase
+
+    gen = torch.Generator().manual_seed(seed)
+    model = ResNetMRLABase(list(layers), num_classes=10,
+                           generator=gen).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.1, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model, torch.randn(4, 64, 64, 3, generator=gen)
+
+
+@pytest.mark.parametrize("use_scan", [False, True])
+def test_mrlab_engine_on_the_card_matches_the_cpu(cuda, use_scan,
+                                                  monkeypatch):
+    """The eq. 6 engine in fp32 on the card against the CPU, in either
+    cache form, launching none of the port's kernels; each stage's cache
+    buffers are allocated once, and the slots not yet written (filled with
+    NaN here) never reach the logits."""
+    import mrla_tpu_torch.serving.resnet_mrlab as engine
+    from mrla_tpu_torch.ops import cache_buffers
+    from mrla_tpu_torch.serving import (
+        prepare_mrlab_inference_params,
+        resnet_mrlab_forward,
+    )
+
+    layers = (2, 3, 2, 2)
+    model, x = _mrlab_case(layers)
+    want = resnet_mrlab_forward(
+        prepare_mrlab_inference_params(model, layers, torch.float32, "cpu"),
+        x, layers, use_scan=use_scan)
+    made = []
+
+    def nan_buffers(*args):
+        made.append(args)
+        return tuple(b.fill_(float("nan")) for b in cache_buffers(*args))
+
+    monkeypatch.setattr(engine, "cache_buffers", nan_buffers)
+    params = prepare_mrlab_inference_params(model, layers, torch.float32,
+                                            "cuda")
+    fused_epilogue.counter.reset()
+    mrla_block_tail_fused_next.counter.reset()
+    got = resnet_mrlab_forward(params, x.cuda(), layers,
+                               use_scan=use_scan).cpu()
+    assert [a[1] for a in made] == list(layers)
+    assert all(a[-1].type == "cuda" for a in made)
+    assert fused_epilogue.counter.calls == 0
+    assert mrla_block_tail_fused_next.counter.calls == 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=3e-4)
+

@@ -190,3 +190,21 @@ def test_entry_needs_a_card_unless_asked():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mrla_tpu_torch.entry()
+
+
+@pytest.mark.parametrize("shared_stem", [True, False])
+def test_microbatch_chains_bitwise_equal(shared_stem):
+    """Chains of 4 images, the stem shared or not, give the unsplit logits
+    bit for bit on the CPU (the JAX engine's guarantee,
+    tests/test_serving.py::test_microbatch_chains_bitwise_equal)."""
+    model = create_model("resnet50_mrlal", device="cpu", num_classes=10,
+                         generator=torch.Generator().manual_seed(4))
+    sp = prepare_inference_params(model, dtype=torch.float32, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (16, 64, 64, 3)).astype(np.float32))
+    full = resnet_mrlal_forward(sp, x)
+    fused_epilogue.counter.reset()
+    split = resnet_mrlal_forward(sp, x, microbatch=4,
+                                 shared_stem=shared_stem)
+    assert fused_epilogue.counter.calls == 4 * 16  # every chain's blocks
+    assert torch.equal(full, split)

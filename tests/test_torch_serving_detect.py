@@ -223,3 +223,17 @@ def test_megatail_covers_states_the_kernel():
     assert not megatail_covers(96, 64)
     assert megatail_covers(1024, 256) and not megatail_covers(1024, 512)
     assert not megatail_covers(2048, 64)
+
+
+def test_detect_forward_microbatch_chains_bitwise_equal():
+    """The pyramid of chains of 2 images is the unsplit pyramid, bit for
+    bit on the CPU, as the JAX engine's chains are its unsplit output."""
+    gen = torch.Generator().manual_seed(9)
+    model = _perturb_bn(MRLABackboneFPN(LAYERS, generator=gen), gen).eval()
+    params = prepare_detect_params(model, LAYERS, torch.float32, "cpu")
+    x = torch.from_numpy(_images(9, b=4))
+    full = detect_forward(params, x, LAYERS)
+    split = detect_forward(params, x, LAYERS, microbatch=2)
+    assert len(split) == len(full) == 5
+    for a, b in zip(full, split):
+        assert torch.equal(a, b)
