@@ -121,6 +121,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      ms / step, img/s, peak memory, finite losses and the RoIAlign launches
      per step by shape (forward, backward, gt mask crop; the tables below);
      a small detector learning the synthetic task (the loss must fall);
+ 8b. classification training (fp32 with TF32 off unless --bf16): (a)
+     one SGD step (momentum 0.9, weight decay 1e-4, label smoothing 0.1,
+     lr 0.1) of a seeded resnet50_mrlal (full depth, 224 px, batch 8,
+     1000 classes; testing.serving_model) on the card against the same
+     step on the CPU: the loss, the largest error of any parameter's and
+     any running statistic's update relative to that update (norms), each
+     within CLS_STEP_TOLS, while each of four injected faults (weight
+     decay left out, label smoothing left out, λ·identity dropped from
+     the epilogue, BN's running variance unbiased) must fail that check;
+     then the same step with fused_epilogue=True against the unfused step
+     on the card, within the same limits; (b) the trainer
+     (train/cli.py main) on the synthetic source for 2 + 8 steps of the
+     ResNet recipe (resnet50_mrlal, 224 px, batch 128, --bf16, SGD, step
+     LR with 3 warm-up epochs, label smoothing 0.1), in turns without and
+     with --fused-epilogue, and of the DeiT recipe
+     (deit_mrlal_tiny_patch16_224, 224 px, batch 256, --bf16, AdamW lr
+     5e-4 · 256/512, wd 0.05, cosine, EMA 0.99996, Mixup 0.8, CutMix 1.0,
+     label smoothing 0.1, drop path 0.1): ms / step (mean of the 8),
+     img/s, the peak memory, finite losses, every kernel count 0 across
+     the steps; (c) a (1, 1, 1, 1) resnet_mrlal learning
+     synthetic-learnable at 64 px, 10 classes, for 300 steps: the loss
+     must fall to CLS_LEARN_RATIO_TOL of its start, and top-1 of -e on
+     the last checkpoint must pass CLS_LEARN_ACC1; (d) the phase's wall
+     time;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
      its main path;
@@ -1842,6 +1866,40 @@ LEARN_WINDOW = 20  # steps averaged at the start and at the end
 # the mean loss of the last LEARN_WINDOW steps over that of the first
 LEARN_RATIO_TOL = 0.6
 
+# The classification training phase (8b).  (a) One step, card against CPU,
+# fp32: the loss relative; for each parameter (running statistic) the
+# norm of the two updates' difference over the norm of the CPU's update,
+# the largest over all of them.  An update whose RMS is below
+# CLS_UPDATE_FLOOR counts as at the floor: some bn_mrla biases' gradients
+# are at fp32 noise (updates of 1e-9 whose card and CPU values differ by
+# as much).  Limits between the sound reading and the least injected
+# fault (both printed by this script; readings in PERF.md).
+CLS_PX, CLS_STEP_BATCH, CLS_LR = 224, 8, 0.1
+CLS_UPDATE_FLOOR = 1e-6
+CLS_STEP_TOLS = {"loss": 1e-4, "param": 0.05, "stat": 0.01}
+# weight decay left out, label smoothing left out, λ·identity dropped from
+# the epilogue, BN's running variance unbiased (torch's default)
+CLS_FAULTS = ("no_weight_decay", "no_label_smoothing", "no_lambda_identity",
+              "unbiased_running_var")
+CLS_WARMUP, CLS_TIMED = 2, 8
+CLS_RECIPES = {
+    "resnet": ["-a", "resnet50_mrlal", "--image-size", str(CLS_PX), "-b",
+               "128", "--opt", "sgd", "--lr", "0.1", "--scheduler", "step",
+               "--warmup-epochs", "3", "--label-smooth", "0.1"],
+    "deit": ["-a", "deit_mrlal_tiny_patch16_224", "--image-size",
+             str(CLS_PX), "-b", "256", "--opt", "adamw", "--lr", "5e-4",
+             "--lr-scale-512", "--wd", "0.05", "--scheduler", "cosine",
+             "--warmup-epochs", "5", "--ema-decay", "0.99996", "--mixup",
+             "0.8", "--cutmix", "1.0", "--label-smooth", "0.1",
+             "--drop-path", "0.1"],
+}
+CLS_LEARN_ARGV = ["-a", "resnet50_mrlal", "--layers", "1", "1", "1", "1",
+                  "--data", "synthetic-learnable", "--image-size", "64",
+                  "--num-classes", "10", "-b", "32", "--epochs", "2",
+                  "--synthetic-steps", "150", "--lr", "0.05",
+                  "--warmup-epochs", "0", "--label-smooth", "0.1"]
+CLS_LEARN_RATIO_TOL, CLS_LEARN_ACC1 = 0.6, 50.0
+
 
 def split_roi_counts(counter, steps: int):
     """(launches, launches per step by shape) of the RoIAlign counter,
@@ -2262,6 +2320,192 @@ def train_detect(smi: str):
     return rows, launches, per_step
 
 
+def cls_step(model, batch, device, fault=None, fused=False):
+    """One SGD + label-smoothing step of a copy of ``model`` on ``device``,
+    with ``fault`` injected; (loss, parameters, running statistics) after
+    it, on the CPU."""
+    import copy
+
+    from torch import nn as tnn
+
+    from mrla_tpu_torch.models.common import BatchNorm2d
+    from mrla_tpu_torch.nn.layers import MRLALightModule
+    from mrla_tpu_torch.train import (
+        create_train_state,
+        cross_entropy,
+        label_smoothing_ce,
+        train_step,
+    )
+    from mrla_tpu_torch.train.optim import sgd_torch
+
+    m = copy.deepcopy(model).to(device)
+    for blk in m.modules():
+        if hasattr(blk, "fused_epilogue"):
+            blk.fused_epilogue = fused
+    opt = sgd_torch(m.parameters(), CLS_LR, 0.9,
+                    0.0 if fault == "no_weight_decay" else 1e-4)
+    loss_fn = (cross_entropy if fault == "no_label_smoothing"
+               else lambda lo, la: label_smoothing_ce(lo, la, 0.1))
+    patched = {"no_lambda_identity": (
+                   MRLALightModule, "forward",
+                   lambda self, xt, ot_1: self.mrla(xt)),
+               "unbiased_running_var": (
+                   BatchNorm2d, "forward", tnn.BatchNorm2d.forward)}.get(
+        fault)
+    if patched:
+        real = getattr(patched[0], patched[1])
+        setattr(patched[0], patched[1], patched[2])
+    try:
+        state = create_train_state(m, opt, lambda step: CLS_LR)
+        loss = train_step(state, {k: v.to(device) for k, v in batch.items()},
+                          loss_fn)["loss"].item()
+    finally:
+        if patched:
+            setattr(patched[0], patched[1], real)
+    return (loss, {k: p.detach().cpu() for k, p in m.named_parameters()},
+            {k: b.cpu() for k, b in m.named_buffers() if "running" in k})
+
+
+def cls_step_errors(got, ref, init) -> dict:
+    """The loss's relative error, and the largest error of any parameter's
+    (running statistic's) update relative to that update (norms; the
+    update at least CLS_UPDATE_FLOOR in RMS)."""
+    def worst(g, r, i):
+        return max(
+            (g[k] - v).norm().item()
+            / max((v - i[k]).norm().item(),
+                  CLS_UPDATE_FLOOR * v.numel() ** 0.5)
+            for k, v in r.items())
+    return {"loss": abs(got[0] - ref[0]) / abs(ref[0]),
+            "param": worst(got[1], ref[1], init[0]),
+            "stat": worst(got[2], ref[2], init[1])}
+
+
+def cls_step_readings() -> dict:
+    """(a)'s readings, printed: "card" (card against CPU), each fault's
+    (the faulty card step against the CPU) and "fused" (fused_epilogue=True
+    against the unfused step, both on the card)."""
+    from mrla_tpu_torch.testing import images, serving_model
+
+    t0 = time.perf_counter()
+    model = serving_model(0).train()
+    gen = torch.Generator().manual_seed(5)
+    batch = {"image": images(gen, CLS_STEP_BATCH, CLS_PX),
+             "label": torch.randint(0, 1000, (CLS_STEP_BATCH,),
+                                    generator=gen)}
+    init = ({k: p.detach().clone() for k, p in model.named_parameters()},
+            {k: b.clone() for k, b in model.named_buffers()
+             if "running" in k})
+    ref = cls_step(model, batch, "cpu")
+    print(f"classification step: resnet50_mrlal full depth, {CLS_PX} px, "
+          f"bs{CLS_STEP_BATCH}, 1000 classes, SGD lr {CLS_LR} momentum 0.9 "
+          f"wd 1e-4, label smoothing 0.1; CPU step in "
+          f"{time.perf_counter() - t0:.1f} s, loss {ref[0]:.6f}")
+    card = cls_step(model, batch, "cuda")
+    out = {"card": cls_step_errors(card, ref, init)}
+    for fault in CLS_FAULTS:
+        out[fault] = cls_step_errors(cls_step(model, batch, "cuda", fault),
+                                     ref, init)
+    out["fused"] = cls_step_errors(
+        cls_step(model, batch, "cuda", fused=True), card, init)
+    for name, e in out.items():
+        print(f"classification step, {name}: " + ", ".join(
+            f"{k} {v:.4g} (tol {CLS_STEP_TOLS[k]})" for k, v in e.items()))
+    return out
+
+
+def check_cls_step():
+    """(a): one full-depth step on the card against the CPU, the four
+    faults, and the fused epilogue against the unfused step on the
+    card."""
+    out = cls_step_readings()
+    for name, e in out.items():
+        within = all(v <= CLS_STEP_TOLS[k] for k, v in e.items())
+        if name in CLS_FAULTS and within:
+            raise AssertionError(f"the step check misses the fault {name}")
+        if name not in CLS_FAULTS and not within:
+            raise AssertionError(f"{name} step beyond tolerance: {e}")
+
+
+def cls_recipe(name: str, smi: str, extra=()) -> dict:
+    """(b): train/cli.py main for CLS_WARMUP + CLS_TIMED steps of a recipe,
+    the kernel counts set to 0 just before and read just after."""
+    from mrla_tpu_torch.train import cli
+
+    counters = all_counters()
+    with tempfile.TemporaryDirectory() as out:
+        argv = CLS_RECIPES[name] + [
+            "--data", "synthetic", "--num-classes", "1000", "--bf16",
+            "--epochs", "1", "--synthetic-steps",
+            str(CLS_WARMUP + CLS_TIMED), "--print-freq", "1000",
+            "--device", "cuda", "--output-dir", out, *extra]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: c.calls for k, c in counters.items()}
+    batch = int(argv[argv.index("-b") + 1])
+    step_ms = sum(res["step_s"][CLS_WARMUP:]) / CLS_TIMED * 1e3
+    data_ms = sum(res["data_s"][CLS_WARMUP:]) / CLS_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    desc = f"{name} recipe{' ' + ' '.join(extra) if extra else ''}"
+    print(f"training {desc} ({argv[1]}, {CLS_PX} px, bs{batch}, bf16): "
+          f"{step_ms:.2f} ms/step, {batch / step_ms * 1e3:.2f} img/s over "
+          f"{CLS_TIMED} steps after {CLS_WARMUP} (data "
+          f"{data_ms:.1f} ms/step beside it), peak memory {peak:.2f} GiB, "
+          f"on {smi}; losses {[round(v, 4) for v in res['loss']]}; kernel "
+          f"launches {launches}")
+    if not all(math.isfinite(v) for v in res["loss"]):
+        raise AssertionError(f"{desc}: non-finite losses {res['loss']}")
+    if any(launches.values()):
+        raise AssertionError(f"{desc}: the port's kernels launched "
+                             f"{launches}")
+    return {"ms": step_ms, "img_s": batch / step_ms * 1e3, "peak": peak}
+
+
+def check_cls_learning(smi: str):
+    """(c): a small resnet_mrlal learns the synthetic templates."""
+    from mrla_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        argv = CLS_LEARN_ARGV + ["--print-freq", "1000", "--device", "cuda",
+                                 "--output-dir", out]
+        loss = cli.main(argv)["loss"]
+        acc1 = cli.main(argv + ["-e", "--resume", out])["acc1"]
+    first = sum(loss[:LEARN_WINDOW]) / LEARN_WINDOW
+    last = sum(loss[-LEARN_WINDOW:]) / LEARN_WINDOW
+    print(f"classification learning: resnet_mrlal layers 1-1-1-1, 64 px, "
+          f"10 classes, bs32, {len(loss)} steps in "
+          f"{time.perf_counter() - t0:.1f} s on {smi}: mean loss of the "
+          f"first {LEARN_WINDOW} steps {first:.4f}, of the last {last:.4f} "
+          f"(ratio {last / first:.4f}, tol {CLS_LEARN_RATIO_TOL}); top-1 of "
+          f"-e on the last checkpoint {acc1:.2f}% (tol {CLS_LEARN_ACC1})")
+    if not last / first <= CLS_LEARN_RATIO_TOL:
+        raise AssertionError(f"the loss fell only to {last / first:.3f} of "
+                             f"its start")
+    if not acc1 > CLS_LEARN_ACC1:
+        raise AssertionError(f"top-1 {acc1:.2f}% after learning")
+
+
+def train_classify(smi: str) -> None:
+    """Phase 8b, classification training."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_cls_step()
+    runs = {}
+    for extra in ((), ("--fused-epilogue",), ("--fused-epilogue",), ()):
+        runs.setdefault(extra, []).append(cls_recipe("resnet", smi, extra))
+    for extra, rs in runs.items():
+        print(f"resnet recipe{' ' + extra[0] if extra else ''}: img/s "
+              f"{[round(r['img_s'], 2) for r in rs]}")
+    cls_recipe("deit", smi)
+    check_cls_learning(smi)
+    print(f"classification training phase: {time.perf_counter() - t0:.1f} s")
+
+
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -2367,6 +2611,7 @@ def main() -> int:
     per_forward.update(det_per_forward)
     rows["roi_align_bwd"], launches[TRAIN_PATH], per_forward[TRAIN_PATH] = \
         train_detect(smi)
+    train_classify(smi)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

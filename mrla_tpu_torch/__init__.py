@@ -26,7 +26,15 @@ sources in ``csrc/``) for every TPU kernel it runs:
     models, the eq. 6 serving engine ``serving/resnet_mrlab.py`` and the
     ``deit_mrlab_*`` archs in the DeiT engine.  The JAX package computes
     them in plain jax.numpy, with no TPU kernel, and so does the port, in
-    plain PyTorch.
+    plain PyTorch;
+  * classification training on one card (``train/``, ``train/cli.py``):
+    the train forwards of the resnet_mrlal and DeiT families (DropPath,
+    dropout, BN on batch statistics with the JAX package's running
+    variance, ``remat``), the fused train epilogue
+    (``ops/fused_train.py``), the losses, schedules, optimizers, EMA,
+    Mixup / CutMix and the synthetic source, and ``torch.save``
+    checkpoints (``ckpt/io.py``).  The JAX training path reaches no TPU
+    kernel, and the port's is plain PyTorch too.
 
 The serving entries take the JAX package's ``microbatch`` option (and
 ``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by
@@ -38,7 +46,17 @@ default (``serving/microbatch.py`` says why).
 
 import torch
 
-from mrla_tpu_torch import ckpt, data, detect, kernels, models, nn, ops, serving
+from mrla_tpu_torch import (
+    ckpt,
+    data,
+    detect,
+    kernels,
+    models,
+    nn,
+    ops,
+    serving,
+    train,
+)
 from mrla_tpu_torch._device import resolve_device
 
 
@@ -57,4 +75,4 @@ def entry(device="cuda"):
 
 
 __all__ = ["ckpt", "data", "detect", "entry", "kernels", "models", "nn",
-           "ops", "resolve_device", "serving"]
+           "ops", "resolve_device", "serving", "train"]

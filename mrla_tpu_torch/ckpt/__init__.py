@@ -6,8 +6,10 @@ from mrla_tpu_torch.ckpt.from_jax import (
     tail_params_from_jax,
     vit_state_dict_from_jax,
 )
+from mrla_tpu_torch.ckpt.io import restore_checkpoint, save_checkpoint
 
 __all__ = ["detector_state_dict_from_jax", "mrlab_serving_params_from_jax",
+           "restore_checkpoint", "save_checkpoint",
            "serving_params_from_jax",
            "state_dict_from_jax", "tail_params_from_jax",
            "vit_state_dict_from_jax"]

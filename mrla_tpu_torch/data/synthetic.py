@@ -1,16 +1,58 @@
-"""Synthetic detection data (numpy only): the learnable squares task the
-port's detection trainer trains on with ``--data synthetic-detect``.
-
-The port's own copy of ``synthetic_detection_batches`` from the JAX
-package's ``data/synthetic.py``; the same seed gives the same batches in
+"""Synthetic data (numpy only), the port's own copy of the JAX package's
+``data/synthetic.py``; the same seed gives the same arrays, bit for bit, in
 both packages.  Images are square, ``image_size`` on a side.
+
+  * ``synthetic_batches``: the classification source of ``train/cli.py``:
+    noise images with random labels (``--data synthetic``: shapes and
+    throughput, nothing to learn), or, with ``learnable``, a fixed random
+    template per class plus per-sample noise (``--data
+    synthetic-learnable``: a working trainer drives the loss well below
+    ln(num_classes)).
+  * ``synthetic_detection_batches``: the learnable squares task the
+    detection trainer trains on with ``--data synthetic-detect``.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Iterator
 
 import numpy as np
+
+
+@lru_cache(maxsize=4)
+def _templates(num_classes: int, image_size: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((num_classes, image_size, image_size, 3)) * 0.5
+    ).astype(np.float32)
+
+
+def synthetic_batches(
+    batch_size: int,
+    image_size: int = 224,
+    num_classes: int = 1000,
+    steps: int = 10,
+    seed: int = 0,
+    learnable: bool = False,
+    noise: float = 0.5,
+    template_seed: int = 0,
+) -> Iterator[dict]:
+    """``steps`` batches {"image": [B, S, S, 3] float32, "label": [B]
+    int32}."""
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        labels = rng.integers(0, num_classes, batch_size).astype(np.int32)
+        if learnable:
+            t = _templates(num_classes, image_size, template_seed)
+            images = t[labels] + rng.standard_normal(
+                (batch_size, image_size, image_size, 3)
+            ).astype(np.float32) * noise
+        else:
+            images = rng.standard_normal(
+                (batch_size, image_size, image_size, 3)
+            ).astype(np.float32)
+        yield {"image": images, "label": labels}
 
 
 def synthetic_detection_batches(

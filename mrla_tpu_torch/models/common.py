@@ -11,6 +11,12 @@ stem's ``conv1`` an ``nn.Sequential``: ``conv1.{0,3,6}`` convs,
 ``conv1.{1,4}`` BNs), the
 shortcut an ``nn.Sequential`` (``downsample.0`` conv, ``downsample.1`` BN)
 and the classifier a top-level ``fc``.
+
+In training, ``BatchNorm2d`` normalises with the batch statistics as
+``nn.BatchNorm2d`` does, but updates the running variance with the
+*biased* batch variance, as Flax's ``nn.BatchNorm`` (and so the JAX
+package) does: ``running = 0.9·running + 0.1·batch``.  ``nn.BatchNorm2d``
+would take the unbiased one, n / (n - 1) times larger.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
@@ -47,16 +54,59 @@ def conv1x1(in_ch: int, out_ch: int, stride: int = 1,
     )
 
 
-def batch_norm(channels: int, zero_init: bool = False) -> nn.BatchNorm2d:
-    """BatchNorm with torch defaults (eps 1e-5, running-stat momentum 0.1)."""
-    bn = nn.BatchNorm2d(channels, eps=BN_EPS)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running variance
+    with the biased batch variance (the JAX package's rule); eval mode, the
+    parameters and buffers are ``nn.BatchNorm2d``'s.  With ``momentum=None``
+    (a cumulative average, which the JAX package has no counterpart of) it
+    is ``nn.BatchNorm2d`` as it is.  ``update_stats = False`` leaves the
+    running statistics as they are (a recomputed forward)."""
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats
+                and self.momentum is not None):
+            return super().forward(x)
+        self._check_input_dim(x)
+        m = self.momentum
+        # the kernel updates copies (which autograd may keep): it adds
+        # m·unbiased = var - (1 - m)·running_var; take away its 1 / n share
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m,
+                         self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                self.running_var.copy_(
+                    var - (var - (1.0 - m) * self.running_var) / n)
+                self.running_mean.copy_(mean)
+                self.num_batches_tracked.add_(1)
+        return y
+
+    def update_running_stats(self, mean: torch.Tensor,
+                             var: torch.Tensor) -> None:
+        """Fold one batch's mean and biased variance (fp32 [C]) into the
+        running statistics by the same rule (the fused train epilogue's
+        update)."""
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+
+
+def batch_norm(channels: int, zero_init: bool = False) -> BatchNorm2d:
+    """BatchNorm with torch defaults (eps 1e-5, running-stat momentum 0.1)
+    and the JAX package's running-variance rule (``BatchNorm2d``)."""
+    bn = BatchNorm2d(channels, eps=BN_EPS)
     if zero_init:
         nn.init.zeros_(bn.weight)
     return bn
 
 
 def stem7x7(width: int = 64, generator: Optional[torch.Generator] = None
-            ) -> tuple[nn.Conv2d, nn.BatchNorm2d]:
+            ) -> tuple[nn.Conv2d, BatchNorm2d]:
     """The classic ResNet stem's 7x7/2 conv and its BN (ReLU and max pool
     are applied by the model)."""
     conv = _kaiming_fan_out(
@@ -67,7 +117,7 @@ def stem7x7(width: int = 64, generator: Optional[torch.Generator] = None
 
 def deep_stem(stem_width: int = 32, out_width: int = 64,
               generator: Optional[torch.Generator] = None
-              ) -> tuple[nn.Sequential, nn.BatchNorm2d]:
+              ) -> tuple[nn.Sequential, BatchNorm2d]:
     """MRLA-base's 3-conv stem: 3x3/2 -> BN -> ReLU -> 3x3 -> BN -> ReLU ->
     3x3, and the BN after it (its ReLU and the max pool are applied by the
     model)."""

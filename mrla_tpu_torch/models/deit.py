@@ -1,4 +1,4 @@
-"""DeiT / ViT baselines (token-major [B, N, C]), eval forward.
+"""DeiT / ViT baselines (token-major [B, N, C]).
 
 Plain and distilled DeiT tiny / small / base at patch 16 and 224 px, the
 tiny patch-8 variant and the two 384 px base variants.  LayerNorm eps is
@@ -16,12 +16,21 @@ the identity.
 ``forward`` takes NHWC images, as the JAX package's model does, and returns
 fp32 logits; inside, tokens are [B, N, C].  The attention product is left to
 PyTorch's fused attention (scale 1/sqrt(d), logits and softmax in fp32
-inside).  Dropout and DropPath act in training only: the constructors
-accept and store their rates and the eval forward ignores them.
+inside).
+
+Training (``model.train()``), as the JAX package's models: dropout at
+``drop_rate`` after the position embedding, on the attention projection's
+output and twice in the MLP, at ``attn_drop_rate`` on the attention
+weights (then computed as fp32 logits and softmax, dropped, times V), and
+DropPath on both residual branches at ``drop_path_rate · i / (depth - 1)``
+in block i; every mask from the generator ``nn.set_generator`` hands the
+model.  A distilled model returns ``(cls_logits, dist_logits)`` in
+training and their mean in eval.  Eval mode ignores every rate.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrla_tpu_torch.models.registry import register_model
+from mrla_tpu_torch.nn.layers import DropPath, Dropout
 
 LN_EPS = 1e-6
 
@@ -54,15 +64,22 @@ def layer_norm(channels: int) -> nn.LayerNorm:
     return nn.LayerNorm(channels, eps=LN_EPS)
 
 
-def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def attention(qkv: torch.Tensor, num_heads: int,
+              attn_drop: Optional[nn.Module] = None) -> torch.Tensor:
     """Multi-head self-attention from the fused projection [B, N, 3C]
     (q, k, v one after the other, each split into heads of d = C / heads
-    channels) -> [B, N, C]."""
+    channels) -> [B, N, C].  With ``attn_drop`` (a ``Dropout``) the weights
+    go through it: fp32 logits and softmax, cast to q's dtype, dropped."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     q, k, v = qkv.reshape(b, n, 3, num_heads, c // num_heads).permute(
         2, 0, 3, 1, 4)  # each [B, h, N, d]
-    out = F.scaled_dot_product_attention(q, k, v)
+    if attn_drop is None:
+        out = F.scaled_dot_product_attention(q, k, v)
+    else:
+        logits = (q @ k.transpose(-2, -1)).float() * (1.0 / math.sqrt(
+            c // num_heads))
+        out = attn_drop(torch.softmax(logits, dim=-1).to(q.dtype)) @ v
     return out.transpose(1, 2).reshape(b, n, c)
 
 
@@ -89,24 +106,28 @@ class Attention(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
         self.qkv = linear(dim, 3 * dim, qkv_bias, generator)
         self.proj = linear(dim, dim, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(attention(self.qkv(x), self.num_heads))
+        drop = self.attn_drop if (self.training
+                                  and self.attn_drop.p > 0.0) else None
+        return self.proj_drop(self.proj(
+            attention(self.qkv(x), self.num_heads, drop)))
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, drop: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.drop = drop
+        self.drop = Dropout(drop)
         self.fc1 = linear(dim, hidden, generator=generator)
         self.fc2 = linear(hidden, dim, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU
+        x = self.drop(F.gelu(self.fc1(x)))  # exact erf GELU
+        return self.drop(self.fc2(x))
 
 
 class ViTBlock(nn.Module):
@@ -117,16 +138,26 @@ class ViTBlock(nn.Module):
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.drop_path = drop_path
+        self.drop_path1, self.drop_path2 = DropPath(drop_path), DropPath(
+            drop_path)
         self.norm1 = layer_norm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop,
                               generator)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, generator)
 
+    @property
+    def drop_path(self) -> float:
+        """The DropPath rate of both residual branches."""
+        return self.drop_path1.rate
+
+    @drop_path.setter
+    def drop_path(self, rate: float) -> None:
+        self.drop_path1.rate = self.drop_path2.rate = rate
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path1(self.attn(self.norm1(x)))
+        return x + self.drop_path2(self.mlp(self.norm2(x)))
 
 
 class VisionTransformer(nn.Module):
@@ -145,6 +176,7 @@ class VisionTransformer(nn.Module):
         self.patch_size, self.num_heads = patch_size, num_heads
         self.distilled = distilled
         self.drop_rate = drop_rate
+        self.pos_drop = Dropout(drop_rate)
         num_tokens = 2 if distilled else 1
         n_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(patch_size, embed_dim, generator)
@@ -169,18 +201,22 @@ class VisionTransformer(nn.Module):
             self.head_dist = linear(embed_dim, num_classes,
                                     generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> logits [B, num_classes] fp32."""
+    def forward(self, x: torch.Tensor):
+        """[B, H, W, 3] -> logits [B, num_classes] fp32 (a distilled model
+        in training: the pair (cls, dist))."""
         tokens = self.patch_embed(x.to(self.pos_embed.dtype))
         b = tokens.shape[0]
         parts = [self.cls_token.expand(b, -1, -1)]
         if self.distilled:
             parts.append(self.dist_token.expand(b, -1, -1))
-        x = self.run_blocks(torch.cat(parts + [tokens], dim=1)
-                            + self.pos_embed)
+        x = self.run_blocks(self.pos_drop(torch.cat(parts + [tokens], dim=1)
+                                          + self.pos_embed))
         x = self.norm(x)
         if self.distilled:
-            return ((self.head(x[:, 0]) + self.head_dist(x[:, 1])) / 2).float()
+            cls, dist = self.head(x[:, 0]), self.head_dist(x[:, 1])
+            if self.training:
+                return cls.float(), dist.float()
+            return ((cls + dist) / 2).float()
         return self.head(x[:, 0]).float()
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""DeiT with MRLA on the token grid, eval forward: the light variant
-(recurrent λ) and the base variant (a K/V cache over the blocks).
+"""DeiT with MRLA on the token grid: the light variant (recurrent λ) and
+the base variant (a K/V cache over the blocks).  Training is the plain
+DeiT's (``models/deit.py``); the MRLA tail itself has no dropout.
 
 Light: every block ends in ``x + mrla(x, block_input)``, where the token
 module

@@ -1,4 +1,5 @@
-"""MRLA layers as ``nn.Module``s: MRLA-light, MRLA-base and LA (eq. 4).
+"""MRLA layers as ``nn.Module``s: MRLA-light, MRLA-base and LA (eq. 4);
+and the stochastic layers of training, ``DropPath`` and ``Dropout``.
 
 Parameter names are the reference implementation's, so its published
 ``state_dict``s load unchanged: ``mrla.Wq.weight`` [1, 1, k],
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from mrla_tpu_torch.ops.common import eca_kernel_size
+from mrla_tpu_torch.ops.drop import drop_path, dropout
 from mrla_tpu_torch.ops.mrla import (
     MRLACache,
     MRLAParams,
@@ -149,3 +151,40 @@ class LALayer(_Projections):
         y = la_eq4_attention(x.permute(0, 2, 3, 1), ctx, self.params(),
                              self.heads)
         return y.permute(0, 3, 1, 2)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth at ``rate``; the identity in eval mode or
+    at rate 0.  Its masks come from ``generator``, which the trainer sets
+    (``set_generator``); the module holds none of its own."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return drop_path(x, self.rate, self.generator, self.training)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout at ``p`` with masks from ``generator`` (as
+    ``DropPath``)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.p, self.generator, self.training)
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> nn.Module:
+    """Hand ``generator`` to every ``DropPath`` and ``Dropout`` in
+    ``model``; their draws then follow the forward's order."""
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.generator = generator
+    return model

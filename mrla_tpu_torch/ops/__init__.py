@@ -5,6 +5,7 @@ from mrla_tpu_torch.ops.common import (
     global_avg_pool,
     max_pool_same_torch,
 )
+from mrla_tpu_torch.ops.drop import drop_path, dropout
 from mrla_tpu_torch.ops.mrla import (
     MRLACache,
     MRLAParams,
@@ -21,6 +22,8 @@ __all__ = [
     "cache_buffers",
     "channel_conv1d",
     "depthwise_conv3x3",
+    "drop_path",
+    "dropout",
     "eca_kernel_size",
     "global_avg_pool",
     "la_eq4_attention",

@@ -35,11 +35,13 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 def channel_conv1d(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Bias-free SAME-padded cross-correlation of a [..., C] descriptor with
     k taps along the channel axis: ``Conv1d(1, 1, k, padding=(k-1)//2,
-    bias=False)`` applied to a [N, 1, C] view.  Returns [..., C]."""
+    bias=False)`` applied to a [N, 1, C] view, in ``y``'s dtype (also
+    under ``torch.autocast``).  Returns [..., C]."""
     taps = w.reshape(1, 1, -1).to(y.dtype)
     k = taps.shape[-1]
     c = y.shape[-1]
-    out = F.conv1d(y.reshape(-1, 1, c), taps, padding=(k - 1) // 2)
+    with torch.autocast(y.device.type, enabled=False):
+        out = F.conv1d(y.reshape(-1, 1, c), taps, padding=(k - 1) // 2)
     return out.reshape(y.shape)
 
 

@@ -100,12 +100,18 @@ def cache_buffers(b: int, t_max: int, h: int, w: int, c: int,
 def _append(cached: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """``cached`` [B, t, ...] with ``new`` [B, ...] as slot t: in place when
     ``cached`` is a view of a buffer with a free slot t (its batch stride
-    spans more than t slots), else by a concatenation."""
+    spans more than t slots), else by a concatenation.  In training (a
+    graph being built) always by a concatenation: a write into the buffer
+    would change the maps the earlier layers' sums saved for the
+    backward."""
     b, t = cached.shape[:2]
     s0, s1 = cached.stride()[:2]
     slot = new[0].numel()
     end = cached.storage_offset() + (b - 1) * s0 + (t + 1) * s1
-    if (s1 == slot and s0 >= (t + 1) * s1 and cached.dtype == new.dtype
+    graph = torch.is_grad_enabled() and (new.requires_grad
+                                         or cached.requires_grad)
+    if (not graph and s1 == slot and s0 >= (t + 1) * s1
+            and cached.dtype == new.dtype
             and end * cached.element_size()
             <= cached.untyped_storage().nbytes()):
         grown = cached.as_strided((b, t + 1, *cached.shape[2:]),

@@ -6,6 +6,8 @@
     python3 -m mrla_tpu_torch.profile_serving --arch resnet50_mrlab [--use-scan]
     python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlab_small_patch16_224
     python3 -m mrla_tpu_torch.profile_serving --preset faster_rcnn_r50mrlal_fpn_1x_coco
+    python3 -m mrla_tpu_torch.profile_serving --train [--fused-epilogue]
+    python3 -m mrla_tpu_torch.profile_serving --train --arch deit_mrlal_tiny_patch16_224
 
 Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine;
 resnet50_mrlab through the eq. 6 engine, ``--use-scan`` for its masked
@@ -44,7 +46,17 @@ traced steps after two, then each stage of one step alone as the loss's
 loss, proposals, R-CNN targets, RoIAlign, box head, R-CNN loss, and the
 mask stages for a mask preset), the RoIAlign backward kernels alone on that
 step's rois, the whole backward (retaining the graph) and the optimizer
-step.  Needs a CUDA card.
+step.
+
+With ``--train`` and no preset it profiles classification training: the
+step of ``train/steps.py`` on the trainer's recipe for ``--arch``
+(resnet50_mrlal: 224 px, batch 128, bf16, SGD, label smoothing 0.1, with
+``--fused-epilogue`` its fused tails; a ``deit_mrlal_*`` arch: batch 256,
+bf16, AdamW, Mixup / CutMix soft targets, drop path 0.1, EMA), from the
+trainer's seeded model and synthetic batches; ``FORWARDS`` traced steps
+after two, by kernel group, and then the forward with its loss, the
+backward (retaining the graph), the optimizer step and the EMA alone.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -137,10 +149,13 @@ STAGE_RUNS = 20
 
 
 def device_ms(prof) -> dict:
-    """Kernel name -> [device ms, launches] of a finished profile."""
+    """Kernel name -> [device ms, launches] of a finished profile.  A user
+    annotation on the device timeline (``Optimizer.step#AdamW.step``
+    spans the optimizer's kernels) is a range, not a kernel: left out."""
     per_kernel = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         per_kernel[evt.key][0] += evt.self_device_time_total / 1e3
         per_kernel[evt.key][1] += evt.count
@@ -346,6 +361,133 @@ def train_profile(preset: str) -> int:
     return 0
 
 
+TRAIN_CLS_GROUPS = (
+    ("depthwise 3x3 (MRLA V, forward and backward)",
+     ("conv2d_c1_k1", "depthwise")),
+    ("batch norm (forward and backward)", ("batch_norm", "bn_fw", "bn_bw",
+                                           "welford")),
+    ("convolution (forward and backward)", ("conv", "xmma", "cudnn",
+                                            "implicit", "winograd", "fprop",
+                                            "dgrad", "wgrad", "nhwc")),
+    ("attention (fused softmax(QK)V, forward and backward)",
+     ("flash", "fmha", "attention")),
+    ("matrix products", ("gemm", "nvjet", "cutlass", "cublas", "sm90_",
+                         "splitk")),
+    ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
+    ("LayerNorm (forward and backward)", ("layer_norm", "layernorm",
+                                          "gammabeta")),
+    ("GELU", ("gelu",)),
+    ("softmax, loss", ("softmax", "nll")),
+    ("reduction (GAP, gate, BN stats, norms)", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def classify_profile(arch: str, fused: bool) -> int:
+    """Device time of classification training steps on the trainer's
+    recipe for ``arch`` (see the module's docstring)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrla_tpu_torch.data import mixup_cutmix, synthetic_batches
+    from mrla_tpu_torch.nn import set_generator
+    from mrla_tpu_torch.train import (
+        cli,
+        create_train_state,
+        label_smoothing_ce,
+        soft_target_ce,
+        train_step,
+        update_ema,
+    )
+
+    deit = arch.startswith("deit")
+    argv = ["-a", arch, "--bf16", "--device", "cuda", "--synthetic-steps",
+            str(FORWARDS + 2)]
+    if deit:
+        argv += ["-b", "256", "--opt", "adamw", "--lr", "5e-4",
+                 "--lr-scale-512", "--wd", "0.05", "--scheduler", "cosine",
+                 "--warmup-epochs", "5", "--ema-decay", "0.99996",
+                 "--drop-path", "0.1"]
+    else:
+        argv += ["-b", "128", "--label-smooth", "0.1"]
+        argv += ["--fused-epilogue"] if fused else []
+    args = cli.build_parser().parse_args(argv)
+    dev = torch.device("cuda")
+    model = cli.build_model(args, dev)
+    opt, schedule = cli.build_optimizer(args, model, args.synthetic_steps)
+    state = create_train_state(model, opt, schedule, args.ema_decay)
+    set_generator(model, torch.Generator(dev).manual_seed(1))
+    batches = []
+    for i, b in enumerate(synthetic_batches(args.batch_size, 224, 1000,
+                                            args.synthetic_steps)):
+        x = torch.from_numpy(b["image"]).to(dev)
+        y = torch.from_numpy(b["label"]).to(dev)
+        if deit:
+            x, y = mixup_cutmix(np.random.default_rng(i), x, y, 1000,
+                                label_smoothing=0.1)
+        batches.append({"image": x, "label": y})
+    loss_fn = (soft_target_ce if deit else
+               lambda lo, la: label_smoothing_ce(lo, la, 0.1))
+
+    def step(b):
+        return train_step(state, b, loss_fn, bf16=True)["loss"].item()
+
+    for b in batches[:2]:
+        step(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_ms(prof)
+    busy = sum(t for t, _ in per_kernel.values())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"window: {arch} training{' --fused-epilogue' if fused else ''}, "
+          f"{FORWARDS} steps, bs{args.batch_size}, 224 px, bf16, wall "
+          f"{wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/step), device busy "
+          f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    if busy == 0:
+        print("the profiler recorded no device time")
+        return 1
+    print_groups(per_kernel, busy, TRAIN_CLS_GROUPS, FORWARDS)
+    print("busiest kernels (ms per step, launches per step):")
+    for name, (t, n) in sorted(per_kernel.items(),
+                               key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {t / FORWARDS:9.4f} {n / FORWARDS:7.1f}  {name[:100]}")
+
+    b = batches[0]
+    model.train()
+
+    def forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return loss_fn(model(b["image"]), b["label"])
+
+    loss = forward()
+    opt.zero_grad(set_to_none=True)
+    loss.backward(retain_graph=True)  # gradients for the optimizer step
+    pieces = [("forward and loss", forward),
+              ("backward (all of it)",
+               lambda: loss.backward(retain_graph=True)),
+              ("optimizer step", opt.step)]
+    if state.ema is not None:
+        pieces.append(("EMA update", lambda: update_ema(state)))
+    print(f"each piece alone, {STAGE_RUNS} runs (device ms, launches, wall "
+          f"ms per run):")
+    for name, fn in pieces:
+        dev_ms, n, wall = stage_times(fn)
+        print(f"  {name:34s} {dev_ms:9.4f} {n:7.1f} {wall:9.3f}")
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--arch", default="resnet50_mrlal",
@@ -359,15 +501,18 @@ def main() -> int:
                         help="a two-stage detection preset: trace "
                              "two_stage_detections at 800 x 1344, bs8")
     parser.add_argument("--train", action="store_true",
-                        help="with --preset: trace a training step at "
-                             "800 x 800, bs8 instead")
+                        help="trace training steps: with --preset, "
+                             "detection at 800 x 800, bs8; else "
+                             "classification on --arch's recipe")
+    parser.add_argument("--fused-epilogue", action="store_true",
+                        help="with --train: resnet50_mrlal's fused tails")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
     if args.train:
         if not args.preset:
-            parser.error("--train needs --preset")
+            return classify_profile(args.arch, args.fused_epilogue)
         return train_profile(args.preset)
     from torch.profiler import ProfilerActivity, profile
 

@@ -1,0 +1,331 @@
+"""Classification trainer CLI: the port's counterpart of the JAX package's
+``train/cli.py`` (one harness for the reference's ResNet and DeiT
+trainers), on one card.
+
+Recipes, by their flags: SGD with a step or cosine schedule, warm-up and
+label smoothing (the ResNet recipe); AdamW with the timm no-decay groups,
+cosine, EMA, Mixup / CutMix and distillation (the DeiT recipe); RMSpropTF
+with exponential decay (the EfficientNet recipe).  ``--bf16`` runs the
+forward under ``torch.autocast`` (fp32 parameters, bf16 compute), as the
+Flax modules' ``dtype``; ``--remat`` recomputes each resnet block in the
+backward; ``--fused-epilogue`` (the port's switch for the JAX model's
+``fused_epilogue=True``) runs each resnet_mrlal block's tail as one
+autograd Function in training.
+
+Data: ``--data synthetic`` (noise) or ``synthetic-learnable`` (a template
+per class).  Both are already normalised, so, as in the JAX trainer, they
+take Mixup / CutMix but neither the flip nor ``--random-erase`` (which act
+on decoded images).  Every draw is seeded from ``--seed``: the model's
+init, the DropPath / dropout masks (a device generator handed to every
+such module of the constructed model, so an arch's own nonzero default
+rate gets its draws whatever the flags say) and the Mixup / CutMix draws
+(host numpy, one stream a step).
+
+Artefacts in ``--output-dir``, the JAX trainer's: ``train_loss.txt``,
+``val_acc1.txt``, ``val_acc5.txt`` ("epoch value" lines), ``log.txt``
+(one JSON object an epoch), and ``checkpoint.pt`` / ``best.pt`` /
+``epoch_<e>.pt`` (``ckpt/io.py``); ``--resume <dir>`` continues at the
+epoch after the stored one, ``-e`` evaluates (the EMA when
+``--ema-decay`` is set).  ``--layers`` (the port's, as the detection
+trainer's ``--backbone-layers``) cuts a resnet_mrlal arch's depth.
+
+    python -m mrla_tpu_torch.train.cli -a resnet50_mrlal --data synthetic \\
+        --epochs 2 --batch-size 32 --synthetic-steps 10 --device cpu
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card it
+raises.  Not ported yet (each refused with an error naming the next
+slice): ImageFolder data (``--data <dir>``), ``--repeated-aug``,
+``--finetune``, ``--profile-dir`` and ``--teacher-resume``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from mrla_tpu_torch._device import resolve_device
+from mrla_tpu_torch.ckpt.io import restore_checkpoint, save_checkpoint
+from mrla_tpu_torch.data.synthetic import synthetic_batches
+from mrla_tpu_torch.data.transforms import mixup_cutmix
+from mrla_tpu_torch.models import ResNetMRLALight, create_model, list_models
+from mrla_tpu_torch.nn.layers import set_generator
+from mrla_tpu_torch.train.losses import (
+    cross_entropy,
+    label_smoothing_ce,
+    soft_target_ce,
+)
+from mrla_tpu_torch.train.metrics import AverageMeter, data_save, jsonl_log
+from mrla_tpu_torch.train.optim import adamw_timm, rmsprop_tf, sgd_torch
+from mrla_tpu_torch.train.schedules import (
+    cosine_with_warmup,
+    exponential_decay_with_warmup,
+    multistep_with_warmup,
+    step_with_warmup,
+)
+from mrla_tpu_torch.train.state import create_train_state
+from mrla_tpu_torch.train.steps import eval_step, train_step
+
+SYNTHETIC = ("synthetic", "synthetic-learnable")
+NEXT_SLICE = ("is not ported yet (the next slice of the port: the real-data "
+              "source, --finetune, --profile-dir, --teacher-resume, "
+              "--repeated-aug)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("mrla_tpu_torch trainer")
+    p.add_argument("-a", "--arch", default="resnet50_mrlal",
+                   choices=list_models())
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic' (noise) or 'synthetic-learnable' "
+                        "(class templates)")
+    p.add_argument("--num-classes", type=int, default=1000)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("-b", "--batch-size", type=int, default=256)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--synthetic-steps", type=int, default=20)
+    # optimizer / schedule
+    p.add_argument("--opt", default="sgd", choices=["sgd", "adamw",
+                                                     "rmsproptf"])
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--wd", "--weight-decay", dest="weight_decay", type=float,
+                   default=1e-4)
+    p.add_argument("--scheduler", default="step",
+                   choices=["step", "cosine", "multistep", "exp"])
+    p.add_argument("--warmup-epochs", type=int, default=3)
+    p.add_argument("--clip-grad", type=float, default=None)
+    p.add_argument("--lr-scale-512", action="store_true",
+                   help="deit linear scaling: lr *= batch/512")
+    # regularization
+    p.add_argument("--label-smooth", type=float, default=0.0)
+    p.add_argument("--mixup", type=float, default=0.0)
+    p.add_argument("--cutmix", type=float, default=0.0)
+    p.add_argument("--random-erase", type=float, default=0.0)
+    p.add_argument("--drop-path", type=float, default=0.0)
+    p.add_argument("--drop-rate", type=float, default=0.0)
+    p.add_argument("--ema-decay", type=float, default=0.0)
+    p.add_argument("--repeated-aug", action="store_true")
+    # distillation
+    p.add_argument("--distillation-type", default="none",
+                   choices=["none", "soft", "hard"])
+    p.add_argument("--teacher-arch", default="resnet50_mrlal",
+                   choices=list_models())
+    p.add_argument("--teacher-resume", default="")
+    p.add_argument("--distillation-alpha", type=float, default=0.5)
+    p.add_argument("--distillation-tau", type=float, default=1.0)
+    # run control
+    p.add_argument("-e", "--evaluate", action="store_true")
+    p.add_argument("--resume", default="")
+    p.add_argument("--finetune", default="")
+    p.add_argument("--output-dir", default="./runs/default")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--print-freq", type=int, default=50)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute under torch.autocast (fp32 params)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each resnet block in the backward")
+    p.add_argument("--fused-epilogue", action="store_true",
+                   help="resnet_mrlal: each block's train tail as one "
+                        "autograd Function (ops/fused_train.py)")
+    p.add_argument("--layers", type=int, nargs=4, default=None,
+                   help="a resnet_mrlal arch at this depth instead of its "
+                        "own (smoke runs and tests use 1 1 1 1)")
+    p.add_argument("--profile-dir", default="")
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def refuse_unported(args) -> None:
+    """Raise for what the next slice ports."""
+    if args.data not in SYNTHETIC:
+        raise SystemExit(f"--data {args.data}: ImageFolder data {NEXT_SLICE}")
+    for flag, value in (("--repeated-aug", args.repeated_aug),
+                        ("--finetune", args.finetune),
+                        ("--profile-dir", args.profile_dir),
+                        ("--teacher-resume", args.teacher_resume)):
+        if value:
+            raise SystemExit(f"{flag} {NEXT_SLICE}")
+
+
+def build_optimizer(args, model, steps_per_epoch: int):
+    """(optimizer, schedule of the global step)."""
+    lr = args.lr
+    if args.lr_scale_512:
+        lr = lr * args.batch_size / 512.0
+    schedule = {
+        "step": lambda: step_with_warmup(lr, steps_per_epoch,
+                                         args.warmup_epochs),
+        "cosine": lambda: cosine_with_warmup(
+            lr, args.epochs, steps_per_epoch, args.warmup_epochs),
+        "multistep": lambda: multistep_with_warmup(
+            lr, steps_per_epoch, warmup_epochs=args.warmup_epochs),
+        "exp": lambda: exponential_decay_with_warmup(
+            lr, steps_per_epoch, warmup_epochs=args.warmup_epochs),
+    }[args.scheduler]()
+    if args.opt == "sgd":
+        opt = sgd_torch(model.parameters(), schedule(0), args.momentum,
+                        args.weight_decay)
+    elif args.opt == "adamw":
+        opt = adamw_timm(model, schedule(0), weight_decay=args.weight_decay)
+    else:
+        opt = rmsprop_tf(model.parameters(), schedule(0),
+                         weight_decay=args.weight_decay)
+    return opt, schedule
+
+
+def build_model(args, device):
+    """The arch from ``--seed`` on ``device``, with the flags' rates."""
+    kw: Dict[str, Any] = dict(num_classes=args.num_classes)
+    if args.drop_path:
+        # the DeiT (timm-lineage) models name it drop_path_rate (a per-depth
+        # schedule); the resnet families take a flat drop_path
+        kw["drop_path_rate" if args.arch.startswith("deit")
+           else "drop_path"] = args.drop_path
+    if args.drop_rate:
+        kw["drop_rate"] = args.drop_rate
+    # supported by resnet_mrlal; another arch rejects the keyword loudly
+    if args.remat:
+        kw["remat"] = True
+    if args.fused_epilogue:
+        kw["fused_epilogue"] = True
+    if args.arch.startswith("deit"):
+        kw["img_size"] = args.image_size
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.layers:
+        if not args.arch.endswith("_mrlal") or args.arch.startswith("deit"):
+            raise SystemExit(f"--layers sets a resnet_mrlal depth, not "
+                             f"{args.arch}'s")
+        return ResNetMRLALight(args.layers, generator=gen, **kw).to(device)
+    return create_model(args.arch, device=device, generator=gen, **kw)
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Train (or, with ``-e``, evaluate); returns the best acc@1 and the
+    history of epochs, and of each step its loss and host seconds (data,
+    then the step up to its loss on the host)."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    steps_per_epoch = args.synthetic_steps
+    learnable = args.data == "synthetic-learnable"
+
+    model = build_model(args, device)
+    optimizer, schedule = build_optimizer(args, model, steps_per_epoch)
+    state = create_train_state(model, optimizer, schedule,
+                               ema_decay=args.ema_decay)
+    drop_gen = torch.Generator(device=device)
+    set_generator(model, drop_gen)
+
+    start_epoch, best_acc1 = 0, 0.0
+    if args.resume:
+        restored = restore_checkpoint(args.resume, state)
+        if restored is not None:
+            # the checkpoint holds the just-completed epoch
+            state, last_epoch, best_acc1 = restored
+            start_epoch = last_epoch + 1
+            print(f"resumed from {args.resume} after epoch {last_epoch}")
+
+    use_soft = args.mixup > 0 or args.cutmix > 0
+    if use_soft:
+        loss_fn = soft_target_ce
+    elif args.label_smooth > 0:
+        def loss_fn(logits, labels):
+            return label_smoothing_ce(logits, labels, args.label_smooth)
+    else:
+        loss_fn = cross_entropy
+
+    teacher = None
+    if args.distillation_type != "none":
+        teacher = create_model(
+            args.teacher_arch, device=device, num_classes=args.num_classes,
+            generator=torch.Generator().manual_seed(args.seed + 7)).eval()
+        print("warning: distillation with a RANDOM teacher (no "
+              "--teacher-resume): only meaningful in tests", file=sys.stderr)
+
+    def validate(epoch):
+        top1 = top5 = count = 0
+        for b in synthetic_batches(args.batch_size, args.image_size,
+                                   args.num_classes, 2, seed=123,
+                                   learnable=learnable):
+            out = eval_step(state, {
+                "image": torch.from_numpy(b["image"]).to(device),
+                "label": torch.from_numpy(b["label"]).to(device)},
+                use_ema=args.ema_decay > 0, bf16=args.bf16)
+            top1 += int(out["top1"])
+            top5 += int(out["top5"])
+            count += int(out["count"])
+        acc1 = 100.0 * top1 / max(count, 1)
+        acc5 = 100.0 * top5 / max(count, 1)
+        print(f"epoch {epoch}: val acc@1 {acc1:.3f} acc@5 {acc5:.3f}")
+        return acc1, acc5
+
+    if args.evaluate:
+        acc1, acc5 = validate(start_epoch)
+        return {"acc1": acc1, "acc5": acc5}
+
+    history, step_loss, data_s, step_s = [], [], [], []
+    for epoch in range(start_epoch, args.epochs):
+        t0 = t1 = time.perf_counter()
+        losses = AverageMeter("loss")
+        drop_gen.manual_seed(args.seed + 1000 * (epoch + 1))
+        batches = synthetic_batches(args.batch_size, args.image_size,
+                                    args.num_classes, steps_per_epoch,
+                                    seed=args.seed + epoch,
+                                    learnable=learnable)
+        for i, b in enumerate(batches):
+            images = torch.from_numpy(b["image"]).to(device)
+            labels = torch.from_numpy(b["label"]).to(device)
+            if use_soft:
+                rng = np.random.default_rng(
+                    [args.seed + 1, epoch * steps_per_epoch + i])
+                images, labels = mixup_cutmix(
+                    rng, images, labels, args.num_classes,
+                    mixup_alpha=max(args.mixup, 1e-8),
+                    cutmix_alpha=max(args.cutmix, 1e-8),
+                    label_smoothing=args.label_smooth)
+            t2 = time.perf_counter()
+            metrics = train_step(
+                state, {"image": images, "label": labels}, loss_fn,
+                grad_clip_norm=args.clip_grad, teacher=teacher,
+                distill_kind=args.distillation_type,
+                distill_alpha=args.distillation_alpha,
+                distill_tau=args.distillation_tau, bf16=args.bf16)
+            loss = float(metrics["loss"])  # waits for the step
+            data_s.append(t2 - t1)
+            t1 = time.perf_counter()
+            step_s.append(t1 - t2)
+            step_loss.append(loss)
+            losses.update(loss, len(b["label"]))
+            if i % args.print_freq == 0:
+                print(f"epoch {epoch} [{i}/{steps_per_epoch}] {losses}")
+            if not np.isfinite(loss):
+                raise FloatingPointError(f"non-finite loss at epoch {epoch}")
+
+        acc1, acc5 = validate(epoch)
+        is_best = acc1 > best_acc1
+        best_acc1 = max(acc1, best_acc1)
+        save_checkpoint(args.output_dir, state, epoch, best_acc1,
+                        is_best=is_best, keep_every=30)
+        data_save(args.output_dir, "train_loss", epoch, losses.avg)
+        data_save(args.output_dir, "val_acc1", epoch, acc1)
+        data_save(args.output_dir, "val_acc5", epoch, acc5)
+        jsonl_log(os.path.join(args.output_dir, "log.txt"), {
+            "epoch": epoch, "train_loss": losses.avg, "test_acc1": acc1,
+            "test_acc5": acc5, "best_acc1": best_acc1,
+            "epoch_time_s": round(time.perf_counter() - t0, 1),
+        })
+        history.append({"epoch": epoch, "loss": losses.avg, "acc1": acc1})
+
+    return {"best_acc1": best_acc1, "history": history, "loss": step_loss,
+            "data_s": data_s, "step_s": step_s, "state": state}
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,8 @@ one-ulp flips of the bf16 intermediates (y, x1, o) that travel on.  The
 DeiT token tail's out to one, as y.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -1152,3 +1154,100 @@ def test_mrlab_engine_on_the_card_matches_the_cpu(cuda, use_scan,
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=2e-3, atol=3e-4)
 
+
+
+def _no_kernel_counters():
+    from mrla_tpu_torch.kernels import (
+        fused_block_tail,
+        hwbc_copy,
+        mrla_block_tail_hwbc,
+        mrla_rowtail,
+        roi_align_patch,
+    )
+
+    return [c.counter for c in (
+        fused_epilogue, mrla_block_tail_fused_next, stage4_resident,
+        deit_token_tail, roi_align_patch, fused_block_tail,
+        mrla_block_tail_hwbc, mrla_rowtail, hwbc_copy)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_classification_train_step_on_the_card(cuda, fused):
+    """One SGD + label-smoothing step of a (1, 1, 1, 1) resnet_mrlal (bn3
+    scales drawn from U(0.1, 0.5)) on the card against the same step on
+    the CPU, fp32: the loss, every parameter and running statistic at the
+    JAX parity tolerances; the step launches none of the port's kernels."""
+    from mrla_tpu_torch.models import ResNetMRLALight
+    from mrla_tpu_torch.train import (
+        create_train_state,
+        label_smoothing_ce,
+        train_step,
+    )
+    from mrla_tpu_torch.train.optim import sgd_torch
+
+    gen = torch.Generator().manual_seed(0)
+    model = ResNetMRLALight([1, 1, 1, 1], num_classes=10, generator=gen,
+                            fused_epilogue=fused)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith("bn3"):
+                m.weight.uniform_(0.1, 0.5, generator=gen)
+    batch = {"image": torch.randn(4, 64, 64, 3, generator=gen),
+             "label": torch.arange(4) % 10}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        state = create_train_state(m, sgd_torch(m.parameters(), 0.05, 0.9,
+                                                1e-4), lambda s: 0.05)
+        for c in _no_kernel_counters():
+            c.reset()
+        met = train_step(state, {k: v.to(dev) for k, v in batch.items()},
+                         lambda lo, la: label_smoothing_ce(lo, la, 0.1))
+        assert all(c.calls == 0 for c in _no_kernel_counters())
+        out[dev] = (met["loss"].item(), {k: v.cpu() for k, v in
+                                         m.state_dict().items()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    for k, v in out["cuda"][1].items():
+        tol = (dict(rtol=1e-4, atol=1e-5) if "running" in k
+               else dict(rtol=5e-4, atol=5e-5))
+        torch.testing.assert_close(v, out["cpu"][1][k], **tol)
+
+
+def test_fused_train_epilogue_on_the_card(cuda):
+    """The fused train epilogue on the card against autograd through the
+    module path's composition on the card, fp32: (ret, mean, var) and
+    every input's gradient at the JAX package's tolerances; in bf16 the
+    same op gives finite outputs and gradients."""
+    from mrla_tpu_torch.ops import MRLAParams
+    from mrla_tpu_torch.ops.fused_train import (
+        fused_epilogue_module_equivalent,
+        fused_light_epilogue_train,
+    )
+
+    b, h, w, c, heads = 4, 14, 14, 256, 8
+    rnd = lambda *s: torch.randn(*s, generator=cuda, device="cuda")  # noqa
+    base = [rnd(b, h, w, c).relu_(), rnd(b, h, w, c), rnd(1, 1, 5) * 0.3,
+            rnd(1, 1, 5) * 0.3, rnd(c, 1, 3, 3) * 0.3, rnd(c) * 0.5,
+            rnd(c) * 0.2 + 1.0, rnd(c) * 0.2]
+
+    def loss(ret, mean, var):
+        return (ret ** 2).sum() + (mean * 0.1).sum() + (var * 0.05).sum()
+
+    fused = [t.clone().requires_grad_() for t in base]
+    plain = [t.clone().requires_grad_() for t in base]
+    got = fused_light_epilogue_train(*fused, heads)
+    o, i, q, k, v, lam, s, bias = plain
+    want = fused_epilogue_module_equivalent(o, i, MRLAParams(q, k, v), lam,
+                                            s, bias, heads)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    loss(*got).backward()
+    loss(*want).backward()
+    for a, r in zip(fused, plain):
+        torch.testing.assert_close(a.grad, r.grad, rtol=2e-4, atol=2e-4)
+    half = [t.clone() for t in base]
+    half[0], half[1] = half[0].bfloat16(), half[1].bfloat16()
+    for t in half:
+        t.requires_grad_()
+    loss(*fused_light_epilogue_train(*half, heads)).backward()
+    assert all(torch.isfinite(t.grad).all() for t in half)
