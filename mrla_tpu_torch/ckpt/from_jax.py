@@ -1,9 +1,10 @@
-"""JAX/Flax variables -> the port's ``state_dict`` (resnet mrlal, mrlab and
-LA eq. 4, and DeiT families), and a JAX serving tree -> the port's serving
-params (resnet mrlal and mrlab).
+"""JAX/Flax variables -> the port's ``state_dict`` (every family of the
+registry: ``arch_state_dict_from_jax`` picks the converter by arch), and a
+JAX serving tree -> the port's serving params (resnet mrlal and mrlab).
 
 The exact inverse of the JAX package's ``convert_resnet_state_dict`` for
-those families, from plain numpy:
+the resnet families (baseline, SE, ECA, ResNeXt, the dw ablation, mrlal,
+mrlab, LA eq. 4), from plain numpy:
 
     params/stem/conv1/kernel            -> conv1.weight               (HWIO->OIHW)
     params/stem/conv1{a,b,c}/kernel     -> conv1.{0,3,6}.weight       (deep stem)
@@ -19,7 +20,12 @@ those families, from plain numpy:
                                            (light only: base has no λ)
     .../la_proj/w{q,k,v}                -> layer{s}.{b}.la.W{q,k,v}.weight
     .../bn_la                           -> layer{s}.{b}.bn_la.*
+    .../se/w{1,2} [in, out]             -> layer{s}.{b}.se.fc.{0,2}.weight [out, in]
+    .../eca/w [k]                       -> layer{s}.{b}.eca.conv.weight [1,1,k]
+    .../dwconv/kernel [3,3,1,C], .../bn_dw -> layer{s}.{b}.dwconv.weight, .bn_dw.*
     params/head/fc/{kernel,bias}        -> fc.{weight,bias}           (kernel transposed)
+
+(a grouped conv2 kernel [3,3,I/g,O] becomes [O,I/g,3,3] as any other).
 
 BN leaves map scale/bias/mean/var -> weight/bias/running_mean/running_var,
 and every BN gets ``num_batches_tracked`` = 0 so the result loads with
@@ -56,6 +62,16 @@ variants:
     .../mrla/mrla/mrla/proj/w{q,k,v} (base)      -> blocks.{i}.mrla.mrla.W{q,k,v}.weight
     params/norm, params/head, params/head_dist   -> norm.*, head.*, head_dist.*
 
+``efficientnet_state_dict_from_jax``, ``resmlp_state_dict_from_jax`` and
+``patchconvnet_state_dict_from_jax`` turn the Flax trees of those models
+into the port's keys (``models/efficientnet_mrla.py`` keys the Flax paths
+dotted; ResMLP and PatchConvNet the reference's, as
+``tests/test_resmlp_patchconvnet.py`` maps them): convs HWIO -> OIHW,
+Dense kernels transposed, LayerNorm scale -> weight, a PatchConvNet SE
+Dense [C, C/4] -> a 1x1 conv [C/4, C, 1, 1], the multi-class head's
+stacked ``head_multi_kernel`` [K, C] / ``head_multi_bias`` [K] -> K
+``head.{i}`` Linears [1, C] / [1].
+
 ``tail_params_from_jax`` pulls one block's tail out of its Flax subtree in
 the form ``pack_tail_params`` takes.
 
@@ -81,6 +97,7 @@ the mmdet-keyed ``state_dict`` the port's detectors load:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -105,6 +122,13 @@ def _oihw(kernel) -> torch.Tensor:
     return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
+def _bn_leaves(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A BN's params ``p`` and statistics ``s`` -> ``{prefix}.*``."""
+    for col, leaf, name in _BN_LEAVES:
+        sd[f"{prefix}.{name}"] = _t((p if col == "params" else s)[leaf])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
 # the deep stem's (conv, the BN inside conv1) pairs; bn1 follows conv1c
 _DEEP_STEM = (("conv1a", "bn1a"), ("conv1b", "bn1b"), ("conv1c", None))
 
@@ -121,12 +145,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` (numpy or array leaves) -> state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def bn(prefix, p, s):
-        for col, leaf, name in _BN_LEAVES:
-            sd[f"{prefix}.{name}"] = _t((p if col == "params" else s)[leaf])
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-
+    bn = lambda prefix, p, s: _bn_leaves(sd, prefix, p, s)
     stem, stem_stats = params["stem"], stats["stem"]
     if "conv1a" in stem:  # the deep stem
         for i, (conv, norm) in enumerate(_DEEP_STEM):
@@ -154,15 +173,23 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             )
             bn(f"{pre}.downsample.1", p["downsample"]["bn"],
                s["downsample"]["bn"])
+        if "se" in p:  # [in, out] -> Linear [out, in]
+            sd[f"{pre}.se.fc.0.weight"] = _t(np.asarray(p["se"]["w1"]).T)
+            sd[f"{pre}.se.fc.2.weight"] = _t(np.asarray(p["se"]["w2"]).T)
+        if "eca" in p:
+            sd[f"{pre}.eca.conv.weight"] = _t(p["eca"]["w"]).reshape(1, 1, -1)
+        if "dwconv" in p:  # the dw ablation
+            sd[f"{pre}.dwconv.weight"] = _oihw(p["dwconv"]["kernel"])
+            bn(f"{pre}.bn_dw", p["bn_dw"], s["bn_dw"])
         if "la_proj" in p:  # LA eq. 4
             _projections(sd, f"{pre}.la", p["la_proj"])
             bn(f"{pre}.bn_la", p["bn_la"], s["bn_la"])
-            continue
-        _projections(sd, f"{pre}.mrla.mrla", p["mrla"]["mrla"]["proj"])
-        if "lambda_t" in p["mrla"]:  # light; base has no λ
-            sd[f"{pre}.mrla.lambda_t"] = _t(
-                p["mrla"]["lambda_t"]).reshape(-1, 1, 1)
-        bn(f"{pre}.bn_mrla", p["bn_mrla"], s["bn_mrla"])
+        if "mrla" in p:
+            _projections(sd, f"{pre}.mrla.mrla", p["mrla"]["mrla"]["proj"])
+            if "lambda_t" in p["mrla"]:  # light; base has no λ
+                sd[f"{pre}.mrla.lambda_t"] = _t(
+                    p["mrla"]["lambda_t"]).reshape(-1, 1, 1)
+            bn(f"{pre}.bn_mrla", p["bn_mrla"], s["bn_mrla"])
 
     if "head" in params:  # a features_only backbone has none
         sd["fc.weight"] = _t(np.asarray(params["head"]["fc"]["kernel"]).T)
@@ -377,3 +404,133 @@ def vit_state_dict_from_jax(variables: Mapping,
     if "head_dist" in params:
         _dense(sd, "head_dist", params["head_dist"])
     return sd
+
+
+def efficientnet_state_dict_from_jax(variables: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a Flax ``EfficientNet`` -> the
+    port's state_dict (``models/efficientnet_mrla.py``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name == "classifier":
+            _dense(sd, name, p)
+        elif name.endswith("_conv"):  # stem_conv, head_conv
+            sd[f"{name}.weight"] = _oihw(p["kernel"])
+        elif name.endswith("_bn"):
+            _bn_leaves(sd, name, p, stats[name])
+        elif name.startswith("stage"):
+            for sub, q in p.items():
+                pre = f"{name}.{sub}"
+                if sub.endswith("_conv"):
+                    sd[f"{pre}.weight"] = _oihw(q["kernel"])
+                elif sub.startswith("bn"):
+                    _bn_leaves(sd, pre, q, stats[name][sub])
+                elif sub == "se":
+                    _dense(sd, f"{pre}.fc1", q["fc1"])
+                    _dense(sd, f"{pre}.fc2", q["fc2"])
+                elif sub == "mrla":
+                    _projections(sd, f"{pre}.mrla", q["mrla"]["proj"])
+                    sd[f"{pre}.lambda_t"] = _t(q["lambda_t"]).reshape(
+                        -1, 1, 1)
+                else:
+                    raise ValueError(f"unrecognized module {name}/{sub}")
+        else:
+            raise ValueError(f"unrecognized module {name}")
+    return sd
+
+
+def _affine(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.alpha"] = _t(p["alpha"])
+    sd[f"{prefix}.beta"] = _t(p["beta"])
+
+
+def resmlp_state_dict_from_jax(variables: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of a Flax ``ResMLP`` -> the port's (the reference's)
+    state_dict."""
+    params = variables["params"]
+    proj = params["patch_embed"]["proj"]
+    sd: Dict[str, torch.Tensor] = {
+        "patch_embed.proj.weight": _oihw(proj["kernel"]),
+        "patch_embed.proj.bias": _t(proj["bias"])}
+    for name in sorted((n for n in params if n.startswith("block")),
+                       key=lambda n: int(n[5:])):
+        p, pre = params[name], f"blocks.{int(name[5:])}"
+        _affine(sd, f"{pre}.norm1", p["norm1"])
+        _affine(sd, f"{pre}.norm2", p["norm2"])
+        _dense(sd, f"{pre}.attn", p["attn"])
+        _dense(sd, f"{pre}.mlp.fc1", p["mlp"]["fc1"])
+        _dense(sd, f"{pre}.mlp.fc2", p["mlp"]["fc2"])
+        sd[f"{pre}.gamma_1"] = _t(p["gamma_1"])
+        sd[f"{pre}.gamma_2"] = _t(p["gamma_2"])
+    _affine(sd, "norm", params["norm"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def patchconvnet_state_dict_from_jax(variables: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of a Flax ``PatchConvNet`` (single- or multi-class)
+    -> the port's (the reference's) state_dict."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(4):
+        sd[f"patch_embed.proj.{2 * i}.0.weight"] = _oihw(
+            params["patch_embed"][f"conv{i}"]["kernel"])
+    depth = sum(1 for n in params if n.startswith("block"))
+    for i in range(depth):
+        p, pre = params[f"block{i}"], f"blocks.{i}"
+        _ln(sd, f"{pre}.norm1", params[f"norm{i}"])
+        sd[f"{pre}.gamma_1"] = _t(params[f"gamma_{i}"])
+        conv = f"{pre}.attn.qkv_pos"
+        for idx, sub in ((0, "pw1"), (2, "dw"), (5, "pw2")):
+            _conv(sd, f"{conv}.{idx}", p[sub])
+        for sub, se in (("se_fc1", "conv_reduce"), ("se_fc2", "conv_expand")):
+            k = np.asarray(p[sub]["kernel"]).T  # [out, in]
+            sd[f"{conv}.4.{se}.weight"] = _t(k[:, :, None, None])
+            sd[f"{conv}.4.{se}.bias"] = _t(p[sub]["bias"])
+    sd["cls_token"] = _t(params["cls_token"])
+    pre = "blocks_token_only.0"
+    sd[f"{pre}.gamma_1"] = _t(params["cls_gamma_1"])
+    sd[f"{pre}.gamma_2"] = _t(params["cls_gamma_2"])
+    _ln(sd, f"{pre}.norm1", params["cls_norm1"])
+    _ln(sd, f"{pre}.norm2", params["cls_norm2"])
+    for sub in ("q", "k", "v", "proj"):
+        _dense(sd, f"{pre}.attn.{sub}", params["cls_attn"][sub])
+    _dense(sd, f"{pre}.mlp.fc1", params["cls_mlp"]["fc1"])
+    _dense(sd, f"{pre}.mlp.fc2", params["cls_mlp"]["fc2"])
+    _ln(sd, "norm", params["norm"])
+    if "head_multi_kernel" in params:  # a Linear(C, 1) a class
+        k = np.asarray(params["head_multi_kernel"])
+        b = np.asarray(params["head_multi_bias"])
+        for i in range(k.shape[0]):
+            sd[f"head.{i}.weight"] = _t(k[i:i + 1])
+            sd[f"head.{i}.bias"] = _t(b[i:i + 1])
+    else:
+        _dense(sd, "head", params["head"])
+    return sd
+
+
+def converter_for(arch: str):
+    """The function that takes ``arch``'s Flax variables to the port's
+    state_dict (``vit_state_dict_from_jax`` with the arch's variant bound)."""
+    if arch.startswith("deit"):
+        variant = ("light" if "_mrlal" in arch else
+                   "base" if "_mrlab" in arch else "plain")
+        return functools.partial(vit_state_dict_from_jax, variant=variant)
+    for prefix, fn in (("efficientnet", efficientnet_state_dict_from_jax),
+                       ("resmlp", resmlp_state_dict_from_jax),
+                       ("patchconvnet", patchconvnet_state_dict_from_jax),
+                       ("resnet", state_dict_from_jax),
+                       ("resnext", state_dict_from_jax)):
+        if arch.startswith(prefix):
+            return fn
+    raise ValueError(f"no converter for arch {arch!r}")
+
+
+def arch_state_dict_from_jax(arch: str, variables: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """``arch``'s Flax variables (numpy or array leaves) -> the port's
+    state_dict, by the arch's family."""
+    return converter_for(arch)(variables)

@@ -12,7 +12,17 @@ from mrla_tpu_torch.models.deit_mrla import (
     MRLAViTBlock,
     ViTMRLA,
 )
+from mrla_tpu_torch.models import patchconvnet, resmlp, resnet  # noqa: F401
+from mrla_tpu_torch.models.efficientnet_mrla import (
+    EfficientNet,
+    MBConv,
+    efficientnet_b0,
+    efficientnet_mrlal_b0,
+)
+from mrla_tpu_torch.models.patchconvnet import PatchConvNet
 from mrla_tpu_torch.models.registry import create_model, list_models, register_model
+from mrla_tpu_torch.models.resmlp import Affine, ResMLP
+from mrla_tpu_torch.models.resnet import Bottleneck, ResNet
 from mrla_tpu_torch.models.resnet_la_eq4 import (
     LAEq4Bottleneck,
     ResNetLAEq4,
@@ -36,8 +46,12 @@ from mrla_tpu_torch.models.resnet_mrla_light import (
 )
 
 __all__ = [
+    "Affine",
     "Attention",
+    "Bottleneck",
+    "EfficientNet",
     "LAEq4Bottleneck",
+    "MBConv",
     "MRLABaseBottleneck",
     "MRLABaseTokenModule",
     "MRLABaseViTBlock",
@@ -45,7 +59,10 @@ __all__ = [
     "MRLALightTokenModule",
     "MRLAViTBlock",
     "Mlp",
+    "PatchConvNet",
     "PatchEmbed",
+    "ResMLP",
+    "ResNet",
     "ResNetLAEq4",
     "ResNetMRLABase",
     "ResNetMRLALight",
@@ -53,6 +70,8 @@ __all__ = [
     "ViTMRLA",
     "VisionTransformer",
     "create_model",
+    "efficientnet_b0",
+    "efficientnet_mrlal_b0",
     "list_models",
     "register_model",
     "resnet50_la_eq4",

@@ -41,9 +41,11 @@ def _kaiming_fan_out(conv: nn.Conv2d,
 
 
 def conv3x3(in_ch: int, out_ch: int, stride: int = 1,
-            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+            generator: Optional[torch.Generator] = None, groups: int = 1,
+            dilation: int = 1) -> nn.Conv2d:
     return _kaiming_fan_out(
-        nn.Conv2d(in_ch, out_ch, 3, stride, padding=1, bias=False), generator
+        nn.Conv2d(in_ch, out_ch, 3, stride, padding=dilation,
+                  dilation=dilation, groups=groups, bias=False), generator
     )
 
 

@@ -14,7 +14,10 @@ truncated normal (std 0.02, cut at two std); biases are zero and LayerNorms
 the identity.
 
 ``forward`` takes NHWC images, as the JAX package's model does, and returns
-fp32 logits; inside, tokens are [B, N, C].  The attention product is left to
+fp32 logits; inside, tokens are [B, N, C] (``forward_features``, the
+tokens after the last block; ``forward_head``, the final norm of the cls
+and dist rows and the heads).  A model whose weights are bf16 and whose
+LayerNorms are fp32 (the precast serving engine's) normalises in fp32.  The attention product is left to
 PyTorch's fused attention (scale 1/sqrt(d), logits and softmax in fp32
 inside).
 
@@ -60,8 +63,24 @@ def linear(in_features: int, out_features: int, bias: bool = True,
     return fc
 
 
-def layer_norm(channels: int) -> nn.LayerNorm:
-    return nn.LayerNorm(channels, eps=LN_EPS)
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that also takes input of a narrower dtype than its
+    weights (a bf16 serving model keeps its norms fp32): then the
+    statistics and the affine are fp32 and the result is rounded to the
+    input's dtype once, as the JAX package's LayerNorm computes with a
+    ``dtype``.  Under ``torch.autocast`` it is ``nn.LayerNorm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (x.dtype == self.weight.dtype
+                or torch.is_autocast_enabled(x.device.type)):
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def layer_norm(channels: int) -> LayerNorm:
+    return LayerNorm(channels, eps=LN_EPS)
 
 
 def attention(qkv: torch.Tensor, num_heads: int,
@@ -204,14 +223,21 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor):
         """[B, H, W, 3] -> logits [B, num_classes] fp32 (a distilled model
         in training: the pair (cls, dist))."""
+        return self.forward_head(self.forward_features(x))
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> the tokens [B, N, C] after the last block."""
         tokens = self.patch_embed(x.to(self.pos_embed.dtype))
         b = tokens.shape[0]
         parts = [self.cls_token.expand(b, -1, -1)]
         if self.distilled:
             parts.append(self.dist_token.expand(b, -1, -1))
-        x = self.run_blocks(self.pos_drop(torch.cat(parts + [tokens], dim=1)
-                                          + self.pos_embed))
-        x = self.norm(x)
+        return self.run_blocks(self.pos_drop(
+            torch.cat(parts + [tokens], dim=1) + self.pos_embed))
+
+    def forward_head(self, x: torch.Tensor):
+        """The final norm of the cls (and dist) rows and the heads."""
+        x = self.norm(x[:, :2 if self.distilled else 1])
         if self.distilled:
             cls, dist = self.head(x[:, 0]), self.head_dist(x[:, 1])
             if self.training:

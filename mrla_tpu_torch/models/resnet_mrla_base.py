@@ -6,12 +6,14 @@ cache))), with dim_perhead=16 (one channel a head with ``channel_wise``);
 the cache restarts at every stage head, where H, W and C change.  The stem
 is the 3-conv deep stem (stem_width 32).  The ``resnet50_mrlab22`` ablation
 has the 7x7 stem and no ReLU on attn (``deep_stem=False,
-relu_on_attn=False``).
+relu_on_attn=False``).  ``se=True`` puts the SE gate, and ``eca`` (taps a
+stage) the ECA gate, after bn3 and before the residual, as in the
+baseline ResNet (``models/resnet.py``).
 
 The module tree and ``state_dict`` keys follow the reference (``conv1.{0,1,
 3,4,6}`` and ``bn1`` for the deep stem, ``layer{s}.{b}.conv{i}``,
 ``layer{s}.{b}.downsample.{0,1}``, ``layer{s}.{b}.mrla.mrla.W{q,k,v}``,
-``layer{s}.{b}.bn_mrla``, ``fc``); the JAX package's
+``layer{s}.{b}.bn_mrla``, ``.se.fc.{0,2}``, ``.eca.conv``, ``fc``); the JAX package's
 ``convert_mrla_base_state_dict`` takes them as they are.
 
 ``forward`` takes NHWC images and returns fp32 logits; with
@@ -38,7 +40,7 @@ from mrla_tpu_torch.models.common import (
     stem7x7,
 )
 from mrla_tpu_torch.models.registry import register_model
-from mrla_tpu_torch.nn.layers import MRLABaseModule
+from mrla_tpu_torch.nn.layers import ECALayer, MRLABaseModule, SELayer
 
 
 class MRLABaseBottleneck(nn.Module):
@@ -49,7 +51,8 @@ class MRLABaseBottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  use_downsample: bool = False, dim_perhead: int = 16,
                  channel_wise: bool = False, relu_on_attn: bool = True,
-                 zero_init_last_bn: bool = True,
+                 zero_init_last_bn: bool = True, se: bool = False,
+                 eca_size: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out_ch = planes * self.expansion
@@ -60,6 +63,9 @@ class MRLABaseBottleneck(nn.Module):
         self.bn2 = batch_norm(planes)
         self.conv3 = conv1x1(planes, out_ch, generator=generator)
         self.bn3 = batch_norm(out_ch, zero_init=zero_init_last_bn)
+        self.se = SELayer(out_ch, generator=generator) if se else None
+        self.eca = (ECALayer(out_ch, eca_size, generator)
+                    if eca_size is not None else None)
         self.downsample = (
             downsample(inplanes, out_ch, stride, generator)
             if use_downsample else None
@@ -72,6 +78,10 @@ class MRLABaseBottleneck(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
+        if self.se is not None:
+            out = self.se(out)
+        if self.eca is not None:
+            out = self.eca(out)
         identity = x if self.downsample is None else self.downsample(x)
         out = F.relu(out + identity)
         attn, cache = self.mrla(out, cache, max_t)
@@ -91,10 +101,8 @@ class ResNetMRLABase(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  features_only: bool = False):
         super().__init__()
-        if se or eca is not None:
-            raise NotImplementedError(
-                "the SE / ECA channel gates are not ported yet")
         self.layers = tuple(layers)
+        eca = tuple(eca) if eca else (None,) * len(self.layers)
         self.features_only = features_only
         self.conv1, self.bn1 = (
             make_deep_stem(32, 64, generator) if deep_stem
@@ -109,7 +117,7 @@ class ResNetMRLABase(nn.Module):
                     stride=2 if (first and stage_idx > 0) else 1,
                     use_downsample=first, dim_perhead=dim_perhead,
                     channel_wise=channel_wise, relu_on_attn=relu_on_attn,
-                    generator=generator,
+                    se=se, eca_size=eca[stage_idx], generator=generator,
                 ))
                 inplanes = planes * MRLABaseBottleneck.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.ModuleList(stage))

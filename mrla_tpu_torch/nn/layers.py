@@ -1,13 +1,17 @@
 """MRLA layers as ``nn.Module``s: MRLA-light, MRLA-base and LA (eq. 4);
-and the stochastic layers of training, ``DropPath`` and ``Dropout``.
+the channel gates SE and ECA; and the stochastic layers of training,
+``DropPath`` and ``Dropout``.
 
 Parameter names are the reference implementation's, so its published
 ``state_dict``s load unchanged: ``mrla.Wq.weight`` [1, 1, k],
 ``mrla.Wk.weight``, ``mrla.Wv.weight`` [C, 1, 3, 3] and ``lambda_t``
-[C, 1, 1] (light; base has no λ), and LA's ``W{q,k,v}.weight``.
+[C, 1, 1] (light; base has no λ), and LA's ``W{q,k,v}.weight``; SE's
+bias-free ``fc.0.weight`` [C // r, C] and ``fc.2.weight`` [C, C // r],
+ECA's ``conv.weight`` [1, 1, k].
 
 Init matches the JAX package: Conv1d-uniform Wq/Wk (U(±1/√k)), kaiming
-normal fan_out Wv, λ ~ N(0, 1).
+normal fan_out Wv, λ ~ N(0, 1); SE's Linears U(±1/√fan_in), ECA's taps
+U(±1/√k).
 
 The modules take NCHW tensors, as ``nn.Conv2d`` does; the model feeds them
 NCHW views of NHWC memory (channels_last strides), and the functional ops
@@ -22,6 +26,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from mrla_tpu_torch.ops.channel_gates import eca_gate, se_gate
 from mrla_tpu_torch.ops.common import eca_kernel_size
 from mrla_tpu_torch.ops.drop import drop_path, dropout
 from mrla_tpu_torch.ops.mrla import (
@@ -150,6 +155,46 @@ class LALayer(_Projections):
     def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
         y = la_eq4_attention(x.permute(0, 2, 3, 1), ctx, self.params(),
                              self.heads)
+        return y.permute(0, 3, 1, 2)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation channel gate (reduction 16)."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mid = channels // reduction
+        self.fc = nn.Sequential(nn.Linear(channels, mid, bias=False),
+                                nn.ReLU(inplace=True),
+                                nn.Linear(mid, channels, bias=False),
+                                nn.Sigmoid())
+        with torch.no_grad():
+            for fc, fan_in in ((self.fc[0], channels), (self.fc[2], mid)):
+                lim = 1.0 / math.sqrt(fan_in)
+                fc.weight.uniform_(-lim, lim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = se_gate(x.permute(0, 2, 3, 1), self.fc[0].weight,
+                    self.fc[2].weight)
+        return y.permute(0, 3, 1, 2)
+
+
+class ECALayer(nn.Module):
+    """Efficient channel attention with ``k_size`` taps (the ECA kernel-size
+    heuristic of the channel count when None)."""
+
+    def __init__(self, channels: int, k_size: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = k_size or eca_kernel_size(channels)
+        self.conv = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+        lim = 1.0 / math.sqrt(k)
+        with torch.no_grad():
+            self.conv.weight.uniform_(-lim, lim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = eca_gate(x.permute(0, 2, 3, 1), self.conv.weight)
         return y.permute(0, 3, 1, 2)
 
 

@@ -32,6 +32,21 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(x, dim=(1, 2), dtype=torch.float32)
 
 
+def rowwise(fn, y: torch.Tensor) -> torch.Tensor:
+    """The elementwise ``fn`` of a [..., n] tensor, on the CPU with its
+    rows padded to a multiple of 64 elements.  A CPU elementwise kernel
+    takes whole chunks in a vector loop and the tail on a scalar path,
+    which may round a transcendental (exp, sigmoid) otherwise; with padded
+    rows every element lies in a whole chunk, so a row's bits do not depend
+    on how many rows the batch has (microbatch chains,
+    ``serving/microbatch.py``).  A CUDA kernel computes every element with
+    the same code, so there the rows go as they are (no extra launches)."""
+    pad = -y.shape[-1] % 64
+    if pad == 0 or y.device.type != "cpu":
+        return fn(y)
+    return fn(F.pad(y, (0, pad)))[..., :y.shape[-1]]
+
+
 def channel_conv1d(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Bias-free SAME-padded cross-correlation of a [..., C] descriptor with
     k taps along the channel axis: ``Conv1d(1, 1, k, padding=(k-1)//2,

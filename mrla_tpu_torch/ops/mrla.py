@@ -38,6 +38,7 @@ from mrla_tpu_torch.ops.common import (
     channel_conv1d,
     depthwise_conv3x3,
     global_avg_pool,
+    rowwise,
 )
 
 
@@ -70,7 +71,8 @@ def mrla_light_attention(x: torch.Tensor, params: MRLAParams, heads: int,
     d = x.shape[-1] // heads
     q, k, v = _qkv(x, params, heads)
     k = k.reshape(q.shape)
-    attn = torch.sigmoid((q * k).sum(-1) * (1.0 / math.sqrt(d)))  # [B, g]
+    attn = rowwise(torch.sigmoid,
+                   (q * k).sum(-1) * (1.0 / math.sqrt(d)))  # [B, g]
     if act_v is not None:
         v = act_v(v)
     gate = attn.repeat_interleave(d, dim=-1).to(v.dtype)  # [B, C]

@@ -5,6 +5,7 @@
     python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlal_small_patch16_224
     python3 -m mrla_tpu_torch.profile_serving --arch resnet50_mrlab [--use-scan]
     python3 -m mrla_tpu_torch.profile_serving --arch deit_mrlab_small_patch16_224
+    python3 -m mrla_tpu_torch.profile_serving --arch efficientnet_mrlal_b0
     python3 -m mrla_tpu_torch.profile_serving --preset faster_rcnn_r50mrlal_fpn_1x_coco
     python3 -m mrla_tpu_torch.profile_serving --train [--fused-epilogue]
     python3 -m mrla_tpu_torch.profile_serving --train --arch deit_mrlal_tiny_patch16_224
@@ -12,7 +13,9 @@
 Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine;
 resnet50_mrlab through the eq. 6 engine, ``--use-scan`` for its masked
 cache form; a ``deit_*`` / ``deit_mrlal_*`` / ``deit_mrlab_*`` arch through
-the DeiT engine) at 224 px in
+the DeiT engine; a baseline resnet / resnext, EfficientNet, ResMLP or
+PatchConvNet arch through the precast engine, from
+``testing.zoo_serving_model``) at 224 px in
 bf16, from seeded weights and images (``mrla_tpu_torch/testing.py``), on
 one CUDA card; traces ``FORWARDS`` forwards of batch ``BATCH`` with
 torch.profiler after a warm-up, and prints the device time by kernel group
@@ -119,6 +122,25 @@ MRLAB_STAGES = ((56, 56, 256, 3), (28, 28, 512, 4), (14, 14, 1024, 6),
                 (7, 7, 2048, 3))
 
 
+ZOO_GROUPS = (  # the precast engine's archs (BN not folded)
+    ("depthwise / grouped convolution",
+     ("conv2d_c1_k1", "depthwise", "grouped", "group_conv")),
+    ("convolution", GROUPS[3][1]),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_infer")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("matrix products (token mixing, MLP, heads)",
+     ("nvjet", "cublas", "splitk", "gemv")),
+    ("attention (class attention's softmax)", ("softmax",)),
+    ("GELU", ("gelu",)),
+    ("SiLU / sigmoid (activations, gates)", ("silu", "sigmoid")),
+    ("reduction (GAP, gates' pools, head)", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("copies and casts", ("copy", "catarray")),
+    ("elementwise (residual adds, gates' products, layer scales)",
+     ("elementwise", "vectorized", "unrolled")),
+)
+
+
 DETECT_GROUPS = (
     ("roi_align backward kernel", ("roi_align_bwd",)),
     ("roi_align kernel", ("roi_align_fwd_kernel",)),
@@ -134,6 +156,8 @@ DETECT_GROUPS = (
     ("elementwise", ("elementwise", "vectorized", "unrolled", "copy")),
 )
 DET_HW, DET_BATCH = (800, 1344), 8
+ZOO_PREFIXES = ("resnet", "resnext", "efficientnet", "resmlp",
+                "patchconvnet")
 
 
 def group_of(name: str, groups=GROUPS) -> str:
@@ -491,8 +515,10 @@ def classify_profile(arch: str, fused: bool) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--arch", default="resnet50_mrlal",
-                        help="resnet50_mrlal, resnet50_mrlab or a deit_* / "
-                             "deit_mrlal_* / deit_mrlab_* arch")
+                        help="resnet50_mrlal, resnet50_mrlab, a deit_* / "
+                             "deit_mrlal_* / deit_mrlab_* arch, or a "
+                             "baseline resnet / resnext, efficientnet, "
+                             "resmlp or patchconvnet arch")
     parser.add_argument("--use-stage4", action="store_true",
                         help="trace resnet50_mrlal's stage-kernel route")
     parser.add_argument("--use-scan", action="store_true",
@@ -559,6 +585,18 @@ def main() -> int:
         forward = lambda xb: resnet_mrlab_forward(params, xb,
                                                   use_scan=args.use_scan)
         route = f", use_scan={args.use_scan}"
+    elif (args.arch.startswith(ZOO_PREFIXES) and "_mrlab" not in args.arch
+          and not args.arch.endswith(("_mrlal", "_la_eq4"))):
+        from mrla_tpu_torch.serving import (
+            precast_forward,
+            prepare_precast_inference_params,
+        )
+        from mrla_tpu_torch.testing import zoo_serving_model
+
+        params = prepare_precast_inference_params(
+            zoo_serving_model(args.arch, 0), device="cuda")
+        forward = lambda xb: precast_forward(params, xb)
+        route = ", precast"
     elif args.arch == "resnet50_mrlal":
         params = attach_stage4(prepare_inference_params(
             serving_model(0), dtype=torch.bfloat16, device="cuda"))
@@ -568,7 +606,8 @@ def main() -> int:
     else:
         parser.error(f"no serving profile for --arch {args.arch}")
     mrlab = "mrlab" in args.arch
-    groups_of_arch = (DETECT_GROUPS if args.preset
+    zoo = route == ", precast"
+    groups_of_arch = (DETECT_GROUPS if args.preset else ZOO_GROUPS if zoo
                       else (DEIT_MRLAB_GROUPS if mrlab else DEIT_GROUPS)
                       if deit else MRLAB_GROUPS if mrlab else GROUPS)
     gen = torch.Generator().manual_seed(1)
@@ -625,6 +664,8 @@ def main() -> int:
         return 0
     if mrlab and not deit:
         mrlab_cache_alone()
+        return 0
+    if zoo:
         return 0
     if deit:
         if params["variant"] == "light":

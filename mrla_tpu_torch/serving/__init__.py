@@ -2,6 +2,10 @@ from mrla_tpu_torch.serving.deit import (
     deit_forward,
     prepare_deit_inference_params,
 )
+from mrla_tpu_torch.serving.precast import (
+    precast_forward,
+    prepare_precast_inference_params,
+)
 from mrla_tpu_torch.serving.detect import (
     detect_forward,
     prepare_detect_params,
@@ -20,7 +24,9 @@ from mrla_tpu_torch.serving.tail_routes import resnet_mrlal_tail_forward
 
 __all__ = ["attach_stage4", "deit_forward", "detect_forward",
            "prepare_deit_inference_params", "prepare_detect_params",
-           "prepare_inference_params", "prepare_mrlab_inference_params",
+           "precast_forward", "prepare_inference_params",
+           "prepare_mrlab_inference_params",
+           "prepare_precast_inference_params",
            "resnet_mrlab_forward", "resnet_mrlal_forward",
            "resnet_mrlal_tail_forward",
            "two_stage_detections"]

@@ -71,6 +71,10 @@ def prepare_mrlab_inference_params(
     dev = resolve_device(device)
     sd = _float_state_dict(model_or_state_dict)
     _check_layers(sd, layers)
+    gates = [k for k in sd if ".se." in k or ".eca." in k]
+    if gates:
+        raise ValueError(f"the engine folds no SE / ECA gate ({gates[0]}); "
+                         "run such a model as an nn.Module")
     conv = lambda kernel_key, bn_prefix: _folded_conv(
         sd, kernel_key, bn_prefix, dev, dtype)
     vec = lambda t: t.to(dev, torch.float32).contiguous()

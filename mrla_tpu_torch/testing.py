@@ -13,6 +13,11 @@ contrast and colour cast.
 ``mrlab_serving_model`` (the resnet MRLA-base archs): the same, with the
 bn_mrla scales spread too, so that the cross-layer term reaches the logits.
 
+``zoo_serving_model`` (the baseline ResNet / ResNeXt with SE, ECA or the
+dw ablation, EfficientNet-B0 with MRLA, ResMLP, PatchConvNet): the same
+remedies for those families; its docstring says which init hides which
+fault.
+
 ``deit_serving_model``: a DeiT's LayerNorms need no calibration, but its
 weights are redrawn wider than the init's (``spread_deit_weights``), so that
 the logits show what every part of the trunk computed.
@@ -35,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from mrla_tpu_torch.kernels import TailParams, pack_stage4_params
-from mrla_tpu_torch.models import create_model
+from mrla_tpu_torch.models import PatchConvNet, create_model
 from mrla_tpu_torch.serving.resnet_mrlal import _conv
 
 
@@ -54,10 +59,10 @@ def images(gen: torch.Generator, n: int, px=224) -> torch.Tensor:
 
 
 def _calibrated(model: torch.nn.Module, gen: torch.Generator,
-                spread=("bn3",)) -> torch.nn.Module:
+                spread=("bn3",), px=224) -> torch.nn.Module:
     """``model`` in eval mode, the scales of the BNs whose names end in one
     of ``spread`` drawn from U(0.1, 0.5) and every BN's statistics averaged
-    over a pass of 16 seeded 224 px images."""
+    over a pass of 16 seeded ``px`` images."""
     bns = [(n, m) for n, m in model.named_modules()
            if isinstance(m, torch.nn.BatchNorm2d)]
     with torch.no_grad():
@@ -66,7 +71,7 @@ def _calibrated(model: torch.nn.Module, gen: torch.Generator,
                 bn.weight.uniform_(0.1, 0.5, generator=gen)
             bn.reset_running_stats()
             bn.momentum = None  # cumulative average over the calibration
-        model.train()(images(gen, 16))
+        model.train()(images(gen, 16, px))
     for _, bn in bns:
         bn.momentum = 0.1
     return model.eval()
@@ -366,3 +371,84 @@ def rcnn_pyramid_grads(model, batch: dict, rand: dict, targets=None,
                                 leaves)
     return ({k: v.detach() for k, v in losses.items()}, used,
             [g.detach() for g in grads])
+
+
+def spread_token_weights(model: torch.nn.Module,
+                         gen: torch.Generator) -> torch.nn.Module:
+    """Redraw a ResMLP's or a PatchConvNet's weights in place, spread as a
+    trained model's are and not as the init's.
+
+    Their layer scales start at 1e-5 or 1e-6 (ResMLP-24, PatchConvNet-S60),
+    which leaves every block a millionth of the residual stream: the logits
+    would not move if a block's body were wired wrong, or if ``gamma_1``
+    and ``gamma_2`` were swapped.  And their std-0.02 weights shrink every
+    branch further.  Here every layer scale is U(0.05, 0.2); every Linear
+    and conv weight N(0, 1/fan_in) (the heads N(0, 0.05)), their biases
+    N(0, 0.1); LayerNorm and Affine weights U(0.5, 1.5), biases N(0, 0.5).
+    The cls token keeps its init.  A PatchConvNet's class attention (one
+    query) gets a key projection of a quarter of its query projection: with
+    a random pair the cls token's own key takes 1/197 of the weight, and a
+    class attention that left it out of its keys and values would not
+    show; so it takes about 0.4."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            owner = name.rsplit(".", 2)[-2] if "." in name else ""
+            if "gamma" in leaf:
+                p.uniform_(0.05, 0.2, generator=gen)
+            elif owner.startswith("norm") or leaf in ("alpha", "beta"):
+                if leaf in ("weight", "alpha"):
+                    p.uniform_(0.5, 1.5, generator=gen)
+                else:
+                    p.normal_(0.0, 0.5, generator=gen)
+            elif name.startswith("head"):
+                if leaf == "weight":
+                    p.normal_(0.0, 0.05, generator=gen)
+            elif leaf == "weight" and p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            elif leaf == "bias":
+                p.normal_(0.0, 0.1, generator=gen)
+        if isinstance(model, PatchConvNet) and not model.multiclass:
+            attn = model.blocks_token_only[0].attn
+            attn.k.weight.copy_(0.25 * attn.q.weight)
+    return model
+
+
+def zoo_serving_model(arch: str, seed: int, px=224,
+                      **model_kw) -> torch.nn.Module:
+    """A registered baseline resnet / resnext (SE, ECA, dw), EfficientNet,
+    ResMLP or PatchConvNet arch on the CPU from ``seed``, in eval mode,
+    with weights under which a wiring fault in a block body reaches the
+    logits.
+
+    * ResNet / ResNeXt: bn3 is zero-initialised (``zero_init_last_bn``),
+      which leaves every residual branch idle, and with it the SE and ECA
+      gates and the grouped 3x3: a gate skipped or its taps reversed would
+      not move the logits.  Its scales are drawn from U(0.1, 0.5), and
+      bn_dw's too (the dw branch).  With bn3's zero bias every channel of
+      the gate's descriptor averages alike, so a gate is near 1/2 on every
+      channel and reversed ECA taps (U(±1/√k)) change little: bn3's biases
+      are drawn from N(0, 0.5) and the ECA taps from U(-1, 1).
+    * EfficientNet: no BN starts at zero, but the init's statistics (mean
+      0, variance 1) leave every BN far from its batch's, so BN eps or a
+      skipped SE would hardly show.
+    * Every BN's statistics are averaged over a pass of 16 seeded ``px``
+      images (with the drop rates at 0), as ``serving_model`` does.
+    * ResMLP / PatchConvNet have no BN: their layer scales and weights are
+      spread by :func:`spread_token_weights`.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    if arch.startswith("efficientnet"):
+        model_kw = {"drop_rate": 0.0, "drop_path_rate": 0.0, **model_kw}
+    if arch.startswith("resmlp"):
+        model_kw = {"img_size": px, **model_kw}
+    model = create_model(arch, device="cpu", generator=gen, **model_kw)
+    if arch.startswith(("resmlp", "patchconvnet")):
+        return spread_token_weights(model, gen).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.bias"):
+                p.normal_(0.0, 0.5, generator=gen)
+            elif name.endswith("eca.conv.weight"):
+                p.uniform_(-1.0, 1.0, generator=gen)
+    return _calibrated(model, gen, spread=("bn3", "bn_dw"), px=px)

@@ -27,7 +27,11 @@ Artefacts in ``--output-dir``, the JAX trainer's: ``train_loss.txt``,
 ``epoch_<e>.pt`` (``ckpt/io.py``); ``--resume <dir>`` continues at the
 epoch after the stored one, ``-e`` evaluates (the EMA when
 ``--ema-decay`` is set).  ``--layers`` (the port's, as the detection
-trainer's ``--backbone-layers``) cuts a resnet_mrlal arch's depth.
+trainer's ``--backbone-layers``) cuts the depth of a resnet_mrlal arch or
+of a baseline ResNet / ResNeXt arch (SE, ECA, the dw ablation).
+``--drop-path`` goes to the timm-lineage families (DeiT, ResMLP,
+PatchConvNet, EfficientNet) as ``drop_path_rate`` and to the resnet
+families as ``drop_path``, as in the JAX trainer.
 
     python -m mrla_tpu_torch.train.cli -a resnet50_mrlal --data synthetic \\
         --epochs 2 --batch-size 32 --synthetic-steps 10 --device cpu
@@ -54,6 +58,7 @@ from mrla_tpu_torch.ckpt.io import restore_checkpoint, save_checkpoint
 from mrla_tpu_torch.data.synthetic import synthetic_batches
 from mrla_tpu_torch.data.transforms import mixup_cutmix
 from mrla_tpu_torch.models import ResNetMRLALight, create_model, list_models
+from mrla_tpu_torch.models import resnet as resnet_models
 from mrla_tpu_torch.nn.layers import set_generator
 from mrla_tpu_torch.train.losses import (
     cross_entropy,
@@ -72,6 +77,7 @@ from mrla_tpu_torch.train.state import create_train_state
 from mrla_tpu_torch.train.steps import eval_step, train_step
 
 SYNTHETIC = ("synthetic", "synthetic-learnable")
+TIMM_STYLE = ("deit", "resmlp", "patchconvnet", "efficientnet")
 NEXT_SLICE = ("is not ported yet (the next slice of the port: the real-data "
               "source, --finetune, --profile-dir, --teacher-resume, "
               "--repeated-aug)")
@@ -114,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     # distillation
     p.add_argument("--distillation-type", default="none",
                    choices=["none", "soft", "hard"])
-    p.add_argument("--teacher-arch", default="resnet50_mrlal",
+    p.add_argument("--teacher-arch", default="resnet50",
                    choices=list_models())
     p.add_argument("--teacher-resume", default="")
     p.add_argument("--distillation-alpha", type=float, default=0.5)
@@ -134,8 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resnet_mrlal: each block's train tail as one "
                         "autograd Function (ops/fused_train.py)")
     p.add_argument("--layers", type=int, nargs=4, default=None,
-                   help="a resnet_mrlal arch at this depth instead of its "
-                        "own (smoke runs and tests use 1 1 1 1)")
+                   help="a resnet_mrlal or baseline resnet / resnext arch "
+                        "at this depth instead of its own (smoke runs and "
+                        "tests use 1 1 1 1)")
     p.add_argument("--profile-dir", default="")
     p.add_argument("--device", default="cuda")
     return p
@@ -183,9 +190,9 @@ def build_model(args, device):
     """The arch from ``--seed`` on ``device``, with the flags' rates."""
     kw: Dict[str, Any] = dict(num_classes=args.num_classes)
     if args.drop_path:
-        # the DeiT (timm-lineage) models name it drop_path_rate (a per-depth
-        # schedule); the resnet families take a flat drop_path
-        kw["drop_path_rate" if args.arch.startswith("deit")
+        # the timm-lineage models name it drop_path_rate; the resnet
+        # families take a flat drop_path
+        kw["drop_path_rate" if args.arch.startswith(TIMM_STYLE)
            else "drop_path"] = args.drop_path
     if args.drop_rate:
         kw["drop_rate"] = args.drop_rate
@@ -194,14 +201,19 @@ def build_model(args, device):
         kw["remat"] = True
     if args.fused_epilogue:
         kw["fused_epilogue"] = True
-    if args.arch.startswith("deit"):
+    if args.arch.startswith(("deit", "resmlp")):  # sized for the patches
         kw["img_size"] = args.image_size
     gen = torch.Generator().manual_seed(args.seed)
     if args.layers:
-        if not args.arch.endswith("_mrlal") or args.arch.startswith("deit"):
-            raise SystemExit(f"--layers sets a resnet_mrlal depth, not "
-                             f"{args.arch}'s")
-        return ResNetMRLALight(args.layers, generator=gen, **kw).to(device)
+        if hasattr(resnet_models, args.arch):  # the baseline families
+            kw["layers"] = args.layers
+        elif args.arch.endswith("_mrlal") and not args.arch.startswith(
+                "deit"):
+            return ResNetMRLALight(args.layers, generator=gen, **kw).to(
+                device)
+        else:
+            raise SystemExit(f"--layers sets a resnet_mrlal or baseline "
+                             f"resnet depth, not {args.arch}'s")
     return create_model(args.arch, device=device, generator=gen, **kw)
 
 

@@ -1251,3 +1251,67 @@ def test_fused_train_epilogue_on_the_card(cuda):
         t.requires_grad_()
     loss(*fused_light_epilogue_train(*half, heads)).backward()
     assert all(torch.isfinite(t.grad).all() for t in half)
+
+
+@pytest.mark.parametrize("arch", ["efficientnet_mrlal_b0",
+                                  "resnext50_32x4d_se"])
+def test_precast_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """The generic engine in fp32 on the card against the CPU at bs4
+    (seeded stand-ins, 64 px), launching none of the port's kernels; in
+    bf16 on the card its logits are finite."""
+    from mrla_tpu_torch.serving import (
+        precast_forward,
+        prepare_precast_inference_params,
+    )
+    from mrla_tpu_torch.testing import images, zoo_serving_model
+
+    model = zoo_serving_model(arch, 0, px=64)
+    x = images(torch.Generator().manual_seed(1), 4, 64)
+    want = precast_forward(prepare_precast_inference_params(
+        model, device="cpu", dtype=torch.float32), x)
+    for c in _no_kernel_counters():
+        c.reset()
+    got = precast_forward(prepare_precast_inference_params(
+        model, device="cuda", dtype=torch.float32), x.cuda()).cpu()
+    served = prepare_precast_inference_params(model, device="cuda")
+    bf16 = precast_forward(served, x.cuda())
+    assert all(c.calls == 0 for c in _no_kernel_counters())
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=3e-4)
+    assert torch.isfinite(bf16).all() and bf16.dtype == torch.float32
+
+
+def test_efficientnet_train_step_on_the_card(cuda):
+    """One RMSpropTF + label-smoothing step of a seeded
+    efficientnet_mrlal_b0 (64 px, bs4, fp32) on the card against the CPU:
+    the loss, every parameter and running statistic at the JAX parity
+    tolerances; no kernel of the port launches."""
+    from mrla_tpu_torch.testing import images, zoo_serving_model
+    from mrla_tpu_torch.train import (
+        create_train_state,
+        label_smoothing_ce,
+        train_step,
+    )
+    from mrla_tpu_torch.train.optim import rmsprop_tf
+
+    model = zoo_serving_model("efficientnet_mrlal_b0", 0, px=64,
+                              num_classes=10)
+    batch = {"image": images(torch.Generator().manual_seed(2), 4, 64),
+             "label": torch.arange(4) % 10}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        state = create_train_state(
+            m, rmsprop_tf(m.parameters(), 0.048, weight_decay=1e-5),
+            lambda s: 0.048)
+        for c in _no_kernel_counters():
+            c.reset()
+        met = train_step(state, {k: v.to(dev) for k, v in batch.items()},
+                         lambda lo, la: label_smoothing_ce(lo, la, 0.1))
+        assert all(c.calls == 0 for c in _no_kernel_counters())
+        out[dev] = (met["loss"].item(), {k: v.cpu() for k, v in
+                                         m.state_dict().items()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    for k, v in out["cuda"][1].items():
+        tol = (dict(rtol=1e-4, atol=1e-5) if "running" in k
+               else dict(rtol=5e-4, atol=5e-5))
+        torch.testing.assert_close(v, out["cpu"][1][k], **tol, msg=k)

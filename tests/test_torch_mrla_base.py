@@ -360,8 +360,18 @@ def test_features_only_serves_the_stage_maps():
 
 
 def test_channel_gates_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="SE / ECA"):
-        ResNetMRLABase([1, 1, 1, 1], se=True)
+    """The SE / ECA gates are ported now (their parity with Flax is in
+    tests/test_torch_resnet_family.py): the models build them after bn3,
+    and the BN-folding engine, which has no gate to fold, refuses them."""
+    from mrla_tpu_torch.nn import ECALayer, SELayer
+
+    se = ResNetMRLABase([1, 1, 1, 1], se=True)
+    eca = ResNetMRLABase([1, 1, 1, 1], eca=(5, 5, 5, 7))
+    assert isinstance(se.layer1[0].se, SELayer)
+    assert [b.eca.conv.weight.numel() for s in (eca.layer1, eca.layer4)
+            for b in s] == [5, 7]
+    with pytest.raises(ValueError, match="SE / ECA"):
+        prepare_mrlab_inference_params(se, (1, 1, 1, 1), device="cpu")
 
 
 # arch -> (blocks per stage, deep stem, ReLU on attn, heads of the last
