@@ -161,6 +161,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      recipe (train/cli.py main, batch 384, RMSpropTF lr 0.048, exponential
      decay, --bf16) for 2 + 8 steps: ms / step, img/s, the peak memory and
      the host draw's time beside the step; (c) the phase's wall time;
+ 8d. classification training on real data, plain PyTorch (every count
+     must read 0 across the phase): (a) what decodes here: Pillow's
+     version, the native JPEG loader's build or its error, nvjpeg.h (the
+     card machine has Pillow and no libjpeg headers, so PIL decodes every
+     batch there); (b) a seeded JPEG tree of ImageNet-like sizes in a
+     temporary directory: 10 classes x 128 train images, 300 val; (c) the
+     loader's batch (train and eval, bilinear and bicubic, bs128, 224 px)
+     bitwise the same decoder called image by image on the same indices
+     and seed, the card's normalisation of it against the host's, the
+     loader's img/s; (d) train/cli.py main on the tree for the ResNet
+     recipe (one epoch of 10 steps, then validation), with --profile-dir:
+     ms / step over steps 1-4 with the data time beside it (the loader's
+     wait, the batch's copy and augmentation), img/s,
+     the peak memory, finite losses, the decoder of every batch, the val
+     count 300 (a ragged last batch), a Chrome trace holding CUDA kernel
+     events; (e) the DeiT recipe with --repeated-aug and random erasing (5
+     steps, bicubic), the same prints and checks; (f) --finetune of a
+     deit_mrlal_tiny checkpoint at 224 px to 384 px and 10 classes with
+     the EMA: before the first step the position embedding equal to
+     interpolate_pos_embed of the saved one, fresh [10, 192] heads, every
+     other weight and the EMA equal to the saved weights; then 2 steps on
+     the tree; (g) --teacher-resume: a resnet50 checkpoint as the teacher
+     of deit_tiny_distilled, its logits equal to the reloaded
+     checkpoint's, while the random-init teacher (the injected fault) must
+     fail that check; (h) the phase's wall time, within REAL_WALL_S;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
      its main path;
@@ -177,6 +202,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1944,8 +1970,35 @@ ZOO_FAULTS = {
 }
 ZOO_STEP_ARCH, ZOO_STEP_LR = "efficientnet_mrlal_b0", 0.048
 ZOO_STEP_FAULT = "no_lambda_identity"
-ZOO_REDUCED = ("RandAugment (rand-m9-mstd0.5) and the real images wait for "
-               "the real-data source: synthetic noise images")
+ZOO_REDUCED = ("RandAugment (rand-m9-mstd0.5): the trainer has no flag for "
+               "it, in either package; synthetic noise images (real images "
+               "in phase 8d)")
+
+# The real-data training phase (8d).  A seeded JPEG tree of ImageNet-like
+# sizes (h, w): REAL_CLASSES x REAL_PER_CLASS train images (10 steps of
+# the ResNet recipe's batch) and REAL_VAL val images (two full batches and
+# a ragged 44).  The card's decoder is held bitwise to the same decoder
+# called image by image on the same indices and seed (the threaded loader
+# must not reorder, drop or reseed a batch), the card's normalisation to
+# the host's within REAL_NORM_TOL.  The teacher's logits to the reloaded
+# checkpoint's within REAL_TEACHER_TOL (fp32, one card), the random-init
+# teacher beyond it.
+REAL_CLASSES, REAL_PER_CLASS, REAL_VAL = 10, 128, 300
+REAL_SIZES = [(375, 500), (500, 375), (333, 500), (480, 640), (300, 300)]
+REAL_PX, REAL_BATCH, REAL_WORKERS = 224, 128, 8
+REAL_NORM_TOL = 1e-5
+REAL_TEACHER_TOL = 1e-4
+REAL_FT_PX, REAL_FT_BATCH, REAL_AUX_BATCH = 384, 32, 16
+REAL_TIMED = (1, 5)  # the steps of ms / step: after the first, before the
+# profiled steps 5-14 (cli.PROFILE_STEPS) of the ResNet run
+REAL_WALL_S = 150.0
+REAL_DEVICE = "cuda"  # the device of phase 8d
+REAL_RECIPES = {
+    "resnet": CLS_RECIPES["resnet"] + ["--bf16", "--epochs", "1"],
+    "deit": CLS_RECIPES["deit"] + ["--bf16", "--epochs", "1",
+                                   "--repeated-aug", "--random-erase",
+                                   "0.25"],
+}
 
 
 def split_roi_counts(counter, steps: int):
@@ -2723,6 +2776,356 @@ def model_zoo(smi: str):
     return counts
 
 
+def decoders_text() -> dict:
+    """(a) What decodes on this machine: Pillow's version, the native
+    loader's build (or its error), nvJPEG's header; printed, returned."""
+    from mrla_tpu_torch.data import native
+
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    nvjpeg = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "include",
+                          "nvjpeg.h")
+    found = {"pil": pil, "native": native.available(),
+             "native_error": native.build_error(),
+             "nvjpeg_h": os.path.exists(nvjpeg)}
+    print(f"decoders: Pillow {pil or 'absent'}; native loader "
+          + ("built" if found["native"] else
+             "unavailable: " + " | ".join(
+                 (found["native_error"] or "").splitlines()[:3]))
+          + f"; nvjpeg.h {'present' if found['nvjpeg_h'] else 'absent'} "
+            f"(not used: "
+          + ("Pillow decodes here)" if pil else "no decoder is built)"))
+    if pil is None:
+        raise AssertionError("no JPEG decoder on this machine: Pillow is "
+                             "absent, and the port has no other build for it")
+    return found
+
+
+def _write_image(path: str, seed: int, c: int, hw) -> None:
+    """A smooth seeded image: a coarse random grid resampled bicubically,
+    tinted by its class."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (6, 8, 3)).astype(np.float64)
+    coarse[..., c % 3] = 0.5 * coarse[..., c % 3] + 12.0 * c
+    img = Image.fromarray(coarse.clip(0, 255).astype(np.uint8)).resize(
+        (hw[1], hw[0]), Image.BICUBIC)
+    img.save(path, quality=90)
+
+
+def write_jpeg_tree(root: str) -> None:
+    """(b) root/{train,val}/class_<c>/*.jpg, seeded, in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = []
+    for split, per_class in (("train", [REAL_PER_CLASS] * REAL_CLASSES),
+                             ("val", [REAL_VAL // REAL_CLASSES + (
+                                 c < REAL_VAL % REAL_CLASSES)
+                                 for c in range(REAL_CLASSES)])):
+        for c, n in enumerate(per_class):
+            d = os.path.join(root, split, f"class_{c}")
+            os.makedirs(d)
+            for i in range(n):
+                seed = len(jobs)
+                jobs.append((os.path.join(d, f"{i:04d}.jpg"), seed, c,
+                             REAL_SIZES[seed % len(REAL_SIZES)]))
+    with ThreadPoolExecutor(REAL_WORKERS) as pool:
+        list(pool.map(lambda j: _write_image(*j), jobs))
+
+
+def check_decoders(root: str, found: dict, smi: str) -> None:
+    """(c) The card's decoder (through the threaded loader, as the trainer
+    runs it) against the same decoder image by image, train and eval,
+    bilinear and bicubic; the card's normalisation against the host's; the
+    loader's rate over the train set with REAL_WORKERS threads (one batch
+    a thread) beside one batch's."""
+    import numpy as np
+
+    from mrla_tpu_torch.data import (
+        ImageFolder,
+        choose_decoder,
+        iterate_batches,
+        native,
+        normalize,
+    )
+
+    ds = ImageFolder(os.path.join(root, "train"))
+    idx = np.random.default_rng(0).permutation(len(ds))[:REAL_BATCH]
+    seed = 17
+    for interp in ("bilinear", "bicubic"):
+        want_decoder = ("native" if interp == "bilinear" and found["native"]
+                        else "pil")
+        for train in (True, False):
+            t0 = time.perf_counter()
+            (b,) = iterate_batches(ds, idx, REAL_BATCH, REAL_PX, train=train,
+                                   seed=seed, num_threads=REAL_WORKERS,
+                                   interpolation=interp)
+            loader_s = time.perf_counter() - t0
+            if b["decoder"] != want_decoder:
+                raise AssertionError(f"{interp} batch decoded by "
+                                     f"{b['decoder']}, not {want_decoder}")
+            t0 = time.perf_counter()
+            if want_decoder == "native":
+                ref = native.decode_batch([ds.samples[i][0] for i in idx],
+                                          REAL_PX, train=train,
+                                          seed=seed * 1_000_003,
+                                          num_threads=1)
+            else:
+                rng = np.random.default_rng((seed, 0))
+                ref = np.stack([ds.load_train(i, REAL_PX, rng, interp)
+                                if train else
+                                ds.load_eval(i, REAL_PX, interp)
+                                for i in idx])
+            one_s = time.perf_counter() - t0
+            err = int(np.abs(b["image"].astype(np.int32) - ref).max())
+            x = torch.from_numpy(b["image"])
+            norm_err = (normalize(x.to(REAL_DEVICE)).cpu()
+                        - normalize(x)).abs().max().item()
+            print(f"decoder check {interp} {'train' if train else 'eval'} "
+                  f"(bs{REAL_BATCH}, {REAL_PX} px): {b['decoder']}, the "
+                  f"loader's batch vs image by image max abs err {err} (tol "
+                  f"0); the card's normalize vs the host's {norm_err:.3g} "
+                  f"(tol {REAL_NORM_TOL}); one batch "
+                  f"{REAL_BATCH / loader_s:.1f} img/s in the loader, "
+                  f"{REAL_BATCH / one_s:.1f} image by image, on {smi}")
+            if err != 0 or not norm_err <= REAL_NORM_TOL:
+                raise AssertionError(f"decoder check {interp} train={train}")
+        t0 = time.perf_counter()
+        n = sum(len(b["label"]) for b in iterate_batches(
+            ds, np.arange(len(ds)), REAL_BATCH, REAL_PX, seed=seed,
+            num_threads=REAL_WORKERS, interpolation=interp))
+        print(f"loader rate {interp} train: {n} images in "
+              f"{n // REAL_BATCH} batches, {REAL_WORKERS} threads: "
+              f"{n / (time.perf_counter() - t0):.1f} img/s")
+    if choose_decoder(ds, "bilinear") != ("native" if found["native"]
+                                          else "pil"):
+        raise AssertionError("choose_decoder disagrees with the build")
+
+
+def trace_kernels(path: str) -> int:
+    """CUDA kernel events of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def real_recipe(name: str, root: str, found: dict, smi: str,
+                profile_dir=None) -> dict:
+    """(d), (e): train/cli.py main for one epoch of the real tree, then
+    validation; the kernel counts set to 0 just before and read just
+    after."""
+    from mrla_tpu_torch.train import cli
+
+    counters = all_counters()
+    with tempfile.TemporaryDirectory() as out:
+        argv = REAL_RECIPES[name] + [
+            "--data", root, "--num-classes", str(REAL_CLASSES),
+            "--workers", str(REAL_WORKERS), "--print-freq", "1000",
+            "--device", REAL_DEVICE, "--output-dir", out]
+        if profile_dir:
+            argv += ["--profile-dir", profile_dir]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: c.calls for k, c in counters.items()}
+    batch = int(argv[argv.index("-b") + 1])
+    lo, hi = REAL_TIMED
+    step_ms = sum(res["step_s"][lo:hi]) / (hi - lo) * 1e3
+    wait_ms = sum(res["data_s"][lo:hi]) / (hi - lo) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    interp = "bicubic" if argv[1].startswith(cli.TIMM_STYLE) else "bilinear"
+    want = "native" if interp == "bilinear" and found["native"] else "pil"
+    desc = f"real-data {name} recipe ({argv[1]}, {REAL_PX} px, bs{batch})"
+    print(f"{desc}: {step_ms:.2f} ms/step, {batch / step_ms * 1e3:.2f} img/s "
+          f"over steps {lo}-{hi - 1} (data {wait_ms:.1f} ms/step beside "
+          f"it: the loader's wait, the copy, the augmentation's launches; "
+          f"every step's data {[round(v * 1e3, 1) for v in res['data_s']]} "
+          f"ms, step "
+          f"{[round(v * 1e3, 1) for v in res['step_s']]} ms), peak memory "
+          f"{peak:.2f} GiB, on {smi}; losses "
+          f"{[round(v, 4) for v in res['loss']]}; decoders "
+          f"{res['decoders']}; val count {res['val_count']}; kernel "
+          f"launches {launches}")
+    n_images = REAL_CLASSES * REAL_PER_CLASS
+    if "--repeated-aug" in argv:  # RASampler's cut to a multiple of 256
+        n_images = n_images // 256 * 256
+    n_steps = n_images // batch
+    if len(res["loss"]) != n_steps or not all(
+            math.isfinite(v) for v in res["loss"]):
+        raise AssertionError(f"{desc}: losses {res['loss']}")
+    if set(res["decoders"]["train"] + res["decoders"]["val"]) != {want} or (
+            len(res["decoders"]["train"]) != n_steps):
+        raise AssertionError(f"{desc}: decoders {res['decoders']}, not "
+                             f"{want}")
+    if res["val_count"] != REAL_VAL:
+        raise AssertionError(f"{desc}: val count {res['val_count']}")
+    if any(launches.values()):
+        raise AssertionError(f"{desc}: the port's kernels launched "
+                             f"{launches}")
+    return {"ms": step_ms, "wait_ms": wait_ms, "peak": peak}
+
+
+def _subset_tree(root: str, dst: str, per_class: int, n_val: int) -> None:
+    """A tree of symlinks to the first images of each class of root."""
+    for split, n in (("train", per_class),
+                     ("val", -(-n_val // REAL_CLASSES))):
+        for c in range(REAL_CLASSES):
+            src = os.path.join(root, split, f"class_{c}")
+            os.makedirs(os.path.join(dst, split, f"class_{c}"))
+            for fn in sorted(os.listdir(src))[:n]:
+                os.symlink(os.path.join(src, fn),
+                           os.path.join(dst, split, f"class_{c}", fn))
+
+
+def check_finetune(root: str, work: str) -> None:
+    """(f) A deit_mrlal_tiny checkpoint at 224 px fine-tuned at 384 px with
+    10 classes and the EMA: the restored state before its first step
+    (--epochs 0), then 2 steps on the real tree."""
+    from mrla_tpu_torch.ckpt import read_model_state_dict
+    from mrla_tpu_torch.train import cli
+    from mrla_tpu_torch.utils import interpolate_pos_embed
+
+    arch = "deit_mrlal_tiny_patch16_224"
+    common = ["-a", arch, "--opt", "adamw", "--lr", "5e-4", "--bf16",
+              "--print-freq", "1000", "--device", REAL_DEVICE]
+    pre = os.path.join(work, "pre")
+    cli.main(common + ["--data", "synthetic", "--image-size", "224",
+                       "--num-classes", "1000", "-b", str(REAL_AUX_BATCH),
+                       "--synthetic-steps", "2", "--epochs", "1",
+                       "--output-dir", pre])
+    saved = read_model_state_dict(pre)  # on the host, as --finetune reads
+    sub = os.path.join(work, "ft_tree")
+    _subset_tree(root, sub, -(-2 * REAL_FT_BATCH // REAL_CLASSES),
+                 REAL_FT_BATCH)
+    ft = common + ["--data", sub, "--image-size", str(REAL_FT_PX),
+                   "--num-classes", str(REAL_CLASSES), "-b",
+                   str(REAL_FT_BATCH), "--ema-decay", "0.99996",
+                   "--finetune", pre, "--output-dir",
+                   os.path.join(work, "ft")]
+    state = cli.main(ft + ["--epochs", "0"])["state"]
+    got = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    grid = (REAL_FT_PX // 16) ** 2
+    errs = {"pos_embed": (got["pos_embed"] - interpolate_pos_embed(
+        saved["pos_embed"], grid, 1)).abs().max().item()}
+    errs["others"] = max((got[k] - saved[k]).abs().max().item()
+                         for k in got if k != "pos_embed"
+                         and not k.startswith("head"))
+    errs["ema"] = max((v.cpu() - got[k]).abs().max().item()
+                      for k, v in state.ema.state_dict().items()
+                      if v.is_floating_point())
+    head = (tuple(got["head.weight"].shape), got["head.bias"].abs().max(
+        ).item(), got["head.weight"].std().item())
+    res = cli.main(ft + ["--epochs", "1"])
+    print(f"finetune {arch} 224 -> {REAL_FT_PX} px, 1000 -> {REAL_CLASSES} "
+          f"classes, EMA 0.99996: before the first step, max abs err of "
+          f"pos_embed vs interpolate_pos_embed {errs['pos_embed']:.3g}, of "
+          f"the other weights vs the saved {errs['others']:.3g}, of the EMA "
+          f"vs the model {errs['ema']:.3g} (tol 0); head {head[0]}, |bias| "
+          f"{head[1]:.3g}, weight std {head[2]:.4f}; then "
+          f"{len(res['loss'])} steps on the real tree at bs{REAL_FT_BATCH}, "
+          f"losses {[round(v, 4) for v in res['loss']]}, decoders "
+          f"{sorted(set(res['decoders']['train']))}")
+    if any(errs.values()) or head[0] != (REAL_CLASSES, 192) or head[1]:
+        raise AssertionError(f"finetune: {errs}, head {head}")
+    if len(res["loss"]) != 2 or not all(math.isfinite(v)
+                                        for v in res["loss"]):
+        raise AssertionError(f"finetune steps: {res['loss']}")
+
+
+def check_teacher_resume(work: str) -> None:
+    """(g) A resnet50 checkpoint as the distillation teacher of
+    deit_tiny_distilled: the teacher's logits against the reloaded
+    checkpoint's, and the random-init teacher (the injected fault)
+    beyond the limit."""
+    from mrla_tpu_torch.ckpt import read_model_state_dict
+    from mrla_tpu_torch.models import create_model
+    from mrla_tpu_torch.train import cli
+
+    common = ["--data", "synthetic", "--image-size", str(REAL_PX),
+              "--num-classes", str(REAL_CLASSES), "-b", str(REAL_AUX_BATCH),
+              "--synthetic-steps", "2", "--epochs", "1", "--print-freq",
+              "1000", "--device", REAL_DEVICE]
+    t_dir = os.path.join(work, "teacher")
+    cli.main(["-a", "resnet50", "--output-dir", t_dir, *common])
+    student = ["-a", "deit_tiny_distilled_patch16_224", "--opt", "adamw",
+               "--lr", "5e-4", "--distillation-type", "hard", *common]
+    res = cli.main(student + ["--teacher-resume", t_dir, "--output-dir",
+                              os.path.join(work, "student")])
+    fault = cli.main(student + ["--output-dir",
+                                os.path.join(work, "student_random")])
+    saved = create_model("resnet50", device=REAL_DEVICE,
+                         num_classes=REAL_CLASSES)
+    saved.load_state_dict(read_model_state_dict(t_dir,
+                                                map_location=REAL_DEVICE))
+    x = torch.randn(REAL_AUX_BATCH, REAL_PX, REAL_PX, 3, device=REAL_DEVICE,
+                    generator=torch.Generator(REAL_DEVICE).manual_seed(5))
+    with torch.no_grad():
+        want = saved.eval()(x)
+        err = (res["teacher"](x) - want).abs().max().item()
+        fault_err = (fault["teacher"](x) - want).abs().max().item()
+    print(f"teacher-resume: resnet50 -> deit_tiny_distilled, hard, "
+          f"{len(res['loss'])} steps, losses "
+          f"{[round(v, 4) for v in res['loss']]}; teacher logits vs the "
+          f"reloaded checkpoint max abs err {err:.3g} (tol "
+          f"{REAL_TEACHER_TOL}); the random-init teacher {fault_err:.3g}")
+    if not err <= REAL_TEACHER_TOL:
+        raise AssertionError(f"teacher-resume: logits off by {err}")
+    if fault_err <= REAL_TEACHER_TOL:
+        raise AssertionError("the teacher check misses a random teacher")
+    if not all(math.isfinite(v) for v in res["loss"]):
+        raise AssertionError(f"teacher-resume losses {res['loss']}")
+
+
+def train_real_data(smi: str) -> None:
+    """Phase 8d, classification training on real data."""
+    t0 = time.perf_counter()
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    found = decoders_text()
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "tree")
+        t1 = time.perf_counter()
+        write_jpeg_tree(root)
+        print(f"jpeg tree: {REAL_CLASSES} x {REAL_PER_CLASS} train, "
+              f"{REAL_VAL} val images of {REAL_SIZES} (h, w) in "
+              f"{time.perf_counter() - t1:.1f} s")
+        check_decoders(root, found, smi)
+        prof = os.path.join(work, "profile")
+        real_recipe("resnet", root, found, smi, profile_dir=prof)
+        from mrla_tpu_torch.train import cli
+
+        trace = os.path.join(prof, cli.TRACE_NAME)
+        n_kernels = trace_kernels(trace)
+        print(f"profile of steps {cli.PROFILE_STEPS[0]}-"
+              f"{REAL_CLASSES * REAL_PER_CLASS // REAL_BATCH - 1}: "
+              f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB, {n_kernels} CUDA "
+              f"kernel events")
+        if not n_kernels:
+            raise AssertionError("the profile holds no CUDA kernel event")
+        real_recipe("deit", root, found, smi)
+        check_finetune(root, work)
+        check_teacher_resume(work)
+    launches = {k: c.calls for k, c in counters.items()}
+    wall = time.perf_counter() - t0
+    print(f"real-data training phase: {wall:.1f} s (limit {REAL_WALL_S}); "
+          f"kernel launches across it {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 8d launched the port's kernels "
+                             f"{launches}")
+    if wall > REAL_WALL_S:
+        raise AssertionError(f"phase 8d took {wall:.1f} s")
+
+
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -2831,6 +3234,7 @@ def main() -> int:
     train_classify(smi)
     for key, got in zip((launches, per_forward), model_zoo(smi)):
         key.update(got)
+    train_real_data(smi)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,12 @@ sources in ``csrc/``) for every TPU kernel it runs:
     variance, ``remat``), the fused train epilogue
     (``ops/fused_train.py``), the losses, schedules, optimizers, EMA,
     Mixup / CutMix and the synthetic source, and ``torch.save``
-    checkpoints (``ckpt/io.py``).  The JAX training path reaches no TPU
-    kernel, and the port's is plain PyTorch too.
+    checkpoints (``ckpt/io.py``); on real data, ImageFolder with its
+    threaded loader (PIL, or the native C++ JPEG loader in
+    ``data/native``), the samplers (repeated augmentation included),
+    RandAugment, the CIFAR and iNat readers, and fine-tuning
+    (``utils/finetune.py``).  The JAX training path reaches no TPU kernel,
+    and the port's is plain PyTorch too.
 
 The serving entries take the JAX package's ``microbatch`` option (and
 ``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by
@@ -56,6 +60,7 @@ from mrla_tpu_torch import (
     ops,
     serving,
     train,
+    utils,
 )
 from mrla_tpu_torch._device import resolve_device
 

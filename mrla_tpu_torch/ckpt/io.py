@@ -6,12 +6,15 @@ the step, the just-completed epoch and the best acc@1.  Every epoch
 overwrites ``<dir>/checkpoint.pt``; ``best.pt`` is written when the epoch
 is the best so far and ``epoch_<e>.pt`` every ``keep_every``-th epoch.  A
 resumed run continues at the epoch after the stored one.
+``read_model_state_dict`` reads the model's state_dict alone, without
+loading it anywhere: ``--finetune`` edits it before it loads it, and
+``--teacher-resume`` loads it into a teacher.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,3 +61,15 @@ def restore_checkpoint(directory: str, state: TrainState,
         state.ema.load_state_dict(ckpt["ema"])
     state.step = int(ckpt["step"])
     return state, int(ckpt["epoch"]), float(ckpt["best_acc1"])
+
+
+def read_model_state_dict(directory: str, name: str = "checkpoint",
+                          map_location="cpu"
+                          ) -> Optional[Dict[str, torch.Tensor]]:
+    """The model state_dict of ``<directory>/<name>.pt``, or None if
+    there is no such file."""
+    path = os.path.join(directory, f"{name}.pt")
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location=map_location,
+                      weights_only=True)["model"]

@@ -4,42 +4,63 @@ trainers), on one card.
 
 Recipes, by their flags: SGD with a step or cosine schedule, warm-up and
 label smoothing (the ResNet recipe); AdamW with the timm no-decay groups,
-cosine, EMA, Mixup / CutMix and distillation (the DeiT recipe); RMSpropTF
-with exponential decay (the EfficientNet recipe).  ``--bf16`` runs the
-forward under ``torch.autocast`` (fp32 parameters, bf16 compute), as the
-Flax modules' ``dtype``; ``--remat`` recomputes each resnet block in the
-backward; ``--fused-epilogue`` (the port's switch for the JAX model's
-``fused_epilogue=True``) runs each resnet_mrlal block's tail as one
-autograd Function in training.
+cosine, EMA, Mixup / CutMix, repeated augmentation and distillation (the
+DeiT recipe); RMSpropTF with exponential decay (the EfficientNet recipe).
+``--bf16`` runs the forward under ``torch.autocast`` (fp32 parameters,
+bf16 compute), as the Flax modules' ``dtype``; ``--remat`` recomputes each
+resnet block in the backward; ``--fused-epilogue`` (the port's switch for
+the JAX model's ``fused_epilogue=True``) runs each resnet_mrlal block's
+tail as one autograd Function in training.
 
-Data: ``--data synthetic`` (noise) or ``synthetic-learnable`` (a template
-per class).  Both are already normalised, so, as in the JAX trainer, they
-take Mixup / CutMix but neither the flip nor ``--random-erase`` (which act
-on decoded images).  Every draw is seeded from ``--seed``: the model's
-init, the DropPath / dropout masks (a device generator handed to every
-such module of the constructed model, so an arch's own nonzero default
-rate gets its draws whatever the flags say) and the Mixup / CutMix draws
-(host numpy, one stream a step).
+Data:
+  * ``--data <dir>``: ImageFolder trees ``<dir>/train`` and ``<dir>/val``
+    (``data/imagefolder.py``), decoded on the host by ``--workers``
+    threads, by the native JPEG loader where it builds, every file is a
+    JPEG and the recipe resamples bilinearly, else by PIL; the DeiT,
+    ResMLP, PatchConvNet and EfficientNet recipes resample bicubically
+    (timm's), the rest bilinearly (torchvision's).  A train batch is
+    RandomResizedCrop on the host, then on the device normalised, flipped,
+    randomly erased (``--random-erase``) and mixed (Mixup / CutMix).  The
+    indices of an epoch are a seeded shuffle, or with ``--repeated-aug``
+    the DeiT recipe's RASampler (each image three times, cut to a multiple
+    of 256).  Validation runs over the whole val set, the last ragged
+    batch padded and its padding masked, so every image counts once;
+  * ``synthetic`` (noise) or ``synthetic-learnable`` (a template per
+    class), already normalised: as in the JAX trainer they take Mixup /
+    CutMix but neither the flip nor the erasing.
+
+Every draw is seeded from ``--seed``: the model's init, the DropPath /
+dropout masks (a device generator handed to every such module of the
+constructed model, so an arch's own nonzero default rate gets its draws
+whatever the flags say), the crops (the loader's per-batch seeds), the
+flips, erasing boxes and noise and the Mixup / CutMix draws (host numpy,
+one stream a step, which also seeds the device generator of the flips and
+the noise) and fresh heads.
 
 Artefacts in ``--output-dir``, the JAX trainer's: ``train_loss.txt``,
 ``val_acc1.txt``, ``val_acc5.txt`` ("epoch value" lines), ``log.txt``
 (one JSON object an epoch), and ``checkpoint.pt`` / ``best.pt`` /
 ``epoch_<e>.pt`` (``ckpt/io.py``); ``--resume <dir>`` continues at the
 epoch after the stored one, ``-e`` evaluates (the EMA when
-``--ema-decay`` is set).  ``--layers`` (the port's, as the detection
-trainer's ``--backbone-layers``) cuts the depth of a resnet_mrlal arch or
-of a baseline ResNet / ResNeXt arch (SE, ECA, the dw ablation).
-``--drop-path`` goes to the timm-lineage families (DeiT, ResMLP,
-PatchConvNet, EfficientNet) as ``drop_path_rate`` and to the resnet
-families as ``drop_path``, as in the JAX trainer.
+``--ema-decay`` is set).  ``--finetune <dir>`` starts from that run's
+model (its position embedding resampled to a new token grid, fresh heads
+for a new class count; ``utils/finetune.py``), with a fresh optimizer and
+the EMA copied from the fine-tuned model.  ``--teacher-resume <dir>``
+loads the distillation teacher from that run's model.  Both raise
+``FileNotFoundError`` without a checkpoint.  ``--profile-dir <dir>``
+writes a ``torch.profiler`` Chrome trace of steps 5-14 of the first epoch
+(CPU and CUDA activity), cut short where the epoch is.  ``--layers`` (the
+port's, as the detection trainer's ``--backbone-layers``) cuts the depth
+of a resnet_mrlal arch or of a baseline ResNet / ResNeXt arch (SE, ECA,
+the dw ablation).  ``--drop-path`` goes to the timm-lineage families
+(DeiT, ResMLP, PatchConvNet, EfficientNet) as ``drop_path_rate`` and to
+the resnet families as ``drop_path``, as in the JAX trainer.
 
-    python -m mrla_tpu_torch.train.cli -a resnet50_mrlal --data synthetic \\
-        --epochs 2 --batch-size 32 --synthetic-steps 10 --device cpu
+    python -m mrla_tpu_torch.train.cli -a resnet50_mrlal --data <dir> \\
+        --epochs 90 --batch-size 256 --workers 8 --bf16
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
-raises.  Not ported yet (each refused with an error naming the next
-slice): ImageFolder data (``--data <dir>``), ``--repeated-aug``,
-``--finetune``, ``--profile-dir`` and ``--teacher-resume``.
+raises.
 """
 
 from __future__ import annotations
@@ -54,9 +75,28 @@ import numpy as np
 import torch
 
 from mrla_tpu_torch._device import resolve_device
-from mrla_tpu_torch.ckpt.io import restore_checkpoint, save_checkpoint
+from mrla_tpu_torch.ckpt.io import (
+    read_model_state_dict,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from mrla_tpu_torch.data import native
+from mrla_tpu_torch.data.imagefolder import (
+    ImageFolder,
+    choose_decoder,
+    iterate_batches,
+)
+from mrla_tpu_torch.data.samplers import (
+    distributed_indices,
+    ra_sampler_indices,
+)
 from mrla_tpu_torch.data.synthetic import synthetic_batches
-from mrla_tpu_torch.data.transforms import mixup_cutmix
+from mrla_tpu_torch.data.transforms import (
+    mixup_cutmix,
+    normalize,
+    random_erasing,
+    random_flip,
+)
 from mrla_tpu_torch.models import ResNetMRLALight, create_model, list_models
 from mrla_tpu_torch.models import resnet as resnet_models
 from mrla_tpu_torch.nn.layers import set_generator
@@ -75,12 +115,15 @@ from mrla_tpu_torch.train.schedules import (
 )
 from mrla_tpu_torch.train.state import create_train_state
 from mrla_tpu_torch.train.steps import eval_step, train_step
+from mrla_tpu_torch.utils.finetune import (
+    interpolate_pos_embed,
+    reset_classifier,
+)
 
 SYNTHETIC = ("synthetic", "synthetic-learnable")
 TIMM_STYLE = ("deit", "resmlp", "patchconvnet", "efficientnet")
-NEXT_SLICE = ("is not ported yet (the next slice of the port: the real-data "
-              "source, --finetune, --profile-dir, --teacher-resume, "
-              "--repeated-aug)")
+PROFILE_STEPS = (5, 15)  # the first epoch's steps [5, 15) are traced
+TRACE_NAME = "trace.json"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--arch", default="resnet50_mrlal",
                    choices=list_models())
     p.add_argument("--data", default="synthetic",
-                   help="'synthetic' (noise) or 'synthetic-learnable' "
+                   help="an ImageFolder root (<dir>/train, <dir>/val), "
+                        "'synthetic' (noise) or 'synthetic-learnable' "
                         "(class templates)")
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--image-size", type=int, default=224)
@@ -122,15 +166,22 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "soft", "hard"])
     p.add_argument("--teacher-arch", default="resnet50",
                    choices=list_models())
-    p.add_argument("--teacher-resume", default="")
+    p.add_argument("--teacher-resume", default="",
+                   help="a run's directory: the teacher's weights from its "
+                        "checkpoint")
     p.add_argument("--distillation-alpha", type=float, default=0.5)
     p.add_argument("--distillation-tau", type=float, default=1.0)
     # run control
     p.add_argument("-e", "--evaluate", action="store_true")
     p.add_argument("--resume", default="")
-    p.add_argument("--finetune", default="")
+    p.add_argument("--finetune", default="",
+                   help="a run's directory: start from its model "
+                        "(position embedding resampled to a new grid, "
+                        "fresh heads for a new class count)")
     p.add_argument("--output-dir", default="./runs/default")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--workers", type=int, default=8,
+                   help="the ImageFolder loader's threads")
     p.add_argument("--print-freq", type=int, default=50)
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute under torch.autocast (fp32 params)")
@@ -143,21 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a resnet_mrlal or baseline resnet / resnext arch "
                         "at this depth instead of its own (smoke runs and "
                         "tests use 1 1 1 1)")
-    p.add_argument("--profile-dir", default="")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler Chrome trace of steps 5-14 "
+                        "of the first epoch here")
     p.add_argument("--device", default="cuda")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise for what the next slice ports."""
-    if args.data not in SYNTHETIC:
-        raise SystemExit(f"--data {args.data}: ImageFolder data {NEXT_SLICE}")
-    for flag, value in (("--repeated-aug", args.repeated_aug),
-                        ("--finetune", args.finetune),
-                        ("--profile-dir", args.profile_dir),
-                        ("--teacher-resume", args.teacher_resume)):
-        if value:
-            raise SystemExit(f"{flag} {NEXT_SLICE}")
 
 
 def build_optimizer(args, model, steps_per_epoch: int):
@@ -217,23 +258,113 @@ def build_model(args, device):
     return create_model(args.arch, device=device, generator=gen, **kw)
 
 
+
+
+def load_finetune(args, model) -> None:
+    """Load ``--finetune``'s model into ``model``: the position embedding
+    resampled where the grid differs (2 extra tokens with a dist token,
+    else 1), fresh heads where their shape differs, then the state_dict
+    (BN statistics included) loaded as the reference loads it, not
+    strictly."""
+    src = read_model_state_dict(args.finetune)
+    if src is None:
+        raise FileNotFoundError(
+            f"--finetune checkpoint not found: {args.finetune}")
+    dst = model.state_dict()
+    if "pos_embed" in src and src["pos_embed"].shape != dst[
+            "pos_embed"].shape:
+        extra = 2 if "dist_token" in dst else 1
+        src["pos_embed"] = interpolate_pos_embed(
+            src["pos_embed"], dst["pos_embed"].shape[1] - extra, extra)
+    heads = [n for n in ("head", "head_dist") if f"{n}.weight" in src]
+    if any(src[f"{n}.weight"].shape != dst[f"{n}.weight"].shape
+           for n in heads):
+        src = reset_classifier(src, args.num_classes,
+                               torch.Generator().manual_seed(args.seed + 9))
+    missing, unexpected = model.load_state_dict(src, strict=False)
+    print(f"finetuning from {args.finetune}"
+          + (f"; missing {missing}" if missing else "")
+          + (f"; unexpected {unexpected}" if unexpected else ""))
+
+
+def build_teacher(args, device):
+    """The distillation teacher in eval mode: ``--teacher-resume``'s model,
+    or (with a warning) a random init from ``--seed``."""
+    teacher = create_model(
+        args.teacher_arch, device=device, num_classes=args.num_classes,
+        generator=torch.Generator().manual_seed(args.seed + 7))
+    if args.teacher_resume:
+        sd = read_model_state_dict(args.teacher_resume, map_location=device)
+        if sd is None:
+            raise FileNotFoundError(
+                f"--teacher-resume checkpoint not found: "
+                f"{args.teacher_resume}")
+        teacher.load_state_dict(sd)
+    else:
+        print("warning: distillation with a RANDOM teacher (no "
+              "--teacher-resume): only meaningful in tests", file=sys.stderr)
+    return teacher.eval()
+
+
+def start_profile(device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities, acc_events=True)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof: torch.profiler.profile, directory: str) -> None:
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, TRACE_NAME)
+    prof.export_chrome_trace(path)
+    print(f"profile written to {path}")
+
+
+def pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``n``."""
+    return np.pad(a, [(0, n - len(a))] + [(0, 0)] * (a.ndim - 1))
+
+
 def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with ``-e``, evaluate); returns the best acc@1 and the
-    history of epochs, and of each step its loss and host seconds (data,
-    then the step up to its loss on the host)."""
+    """Train (or, with ``-e``, evaluate); returns the best acc@1, the
+    history of epochs, the last validation's count, the decoder of each
+    real-data batch (train and val), the state and the teacher, and of each
+    step its loss and host seconds: ``data_s`` until the batch is on the
+    device (the wait for the source's batch, which is the loader's wait on
+    real data or the synthetic draw, then its copy and the augmentation's
+    launches), ``step_s`` the step up to its loss on the host."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
-    steps_per_epoch = args.synthetic_steps
+    synthetic = args.data in SYNTHETIC
     learnable = args.data == "synthetic-learnable"
+    interpolation = ("bicubic" if args.arch.startswith(TIMM_STYLE)
+                     else "bilinear")
+    if synthetic:
+        steps_per_epoch = args.synthetic_steps
+    else:
+        train_ds = ImageFolder(os.path.join(args.data, "train"))
+        val_ds = ImageFolder(os.path.join(args.data, "val"))
+        steps_per_epoch = len(train_ds) // args.batch_size
+        decoder = choose_decoder(train_ds, interpolation)
+        why = ""
+        if interpolation == "bilinear" and not native.available():
+            why = f" (native loader: {native.build_error().splitlines()[0]})"
+        print(f"data: {len(train_ds)} train, {len(val_ds)} val images, "
+              f"{interpolation}, decoder {decoder}{why}")
 
     model = build_model(args, device)
+    if args.finetune:
+        load_finetune(args, model)
     optimizer, schedule = build_optimizer(args, model, steps_per_epoch)
     state = create_train_state(model, optimizer, schedule,
                                ema_decay=args.ema_decay)
     drop_gen = torch.Generator(device=device)
     set_generator(model, drop_gen)
+    aug_gen = torch.Generator(device=device)
 
     start_epoch, best_acc1 = 0, 0.0
     if args.resume:
@@ -252,57 +383,100 @@ def main(argv=None) -> Dict[str, Any]:
             return label_smoothing_ce(logits, labels, args.label_smooth)
     else:
         loss_fn = cross_entropy
+    teacher = (build_teacher(args, device)
+               if args.distillation_type != "none" else None)
+    decoders = {"train": [], "val": []}
 
-    teacher = None
-    if args.distillation_type != "none":
-        teacher = create_model(
-            args.teacher_arch, device=device, num_classes=args.num_classes,
-            generator=torch.Generator().manual_seed(args.seed + 7)).eval()
-        print("warning: distillation with a RANDOM teacher (no "
-              "--teacher-resume): only meaningful in tests", file=sys.stderr)
+    def eval_batches():
+        """(images, labels, valid) on the device, the val set whole."""
+        if synthetic:
+            for b in synthetic_batches(args.batch_size, args.image_size,
+                                       args.num_classes, 2, seed=123,
+                                       learnable=learnable):
+                yield (torch.from_numpy(b["image"]).to(device),
+                       torch.from_numpy(b["label"]).to(device), None)
+            return
+        n = len(val_ds)
+        for i, b in enumerate(iterate_batches(
+                val_ds, np.arange(n), args.batch_size, args.image_size,
+                train=False, num_threads=args.workers, drop_last=False,
+                interpolation=interpolation)):
+            decoders["val"].append(b["decoder"])
+            valid = i * args.batch_size + np.arange(args.batch_size) < n
+            yield (normalize(torch.from_numpy(
+                       pad_rows(b["image"], args.batch_size)).to(device)),
+                   torch.from_numpy(
+                       pad_rows(b["label"], args.batch_size)).to(device),
+                   torch.from_numpy(valid).to(device))
 
     def validate(epoch):
         top1 = top5 = count = 0
-        for b in synthetic_batches(args.batch_size, args.image_size,
-                                   args.num_classes, 2, seed=123,
-                                   learnable=learnable):
-            out = eval_step(state, {
-                "image": torch.from_numpy(b["image"]).to(device),
-                "label": torch.from_numpy(b["label"]).to(device)},
-                use_ema=args.ema_decay > 0, bf16=args.bf16)
+        for images, labels, valid in eval_batches():
+            batch = {"image": images, "label": labels}
+            if valid is not None:
+                batch["valid"] = valid
+            out = eval_step(state, batch, use_ema=args.ema_decay > 0,
+                            bf16=args.bf16)
             top1 += int(out["top1"])
             top5 += int(out["top5"])
             count += int(out["count"])
         acc1 = 100.0 * top1 / max(count, 1)
         acc5 = 100.0 * top5 / max(count, 1)
-        print(f"epoch {epoch}: val acc@1 {acc1:.3f} acc@5 {acc5:.3f}")
-        return acc1, acc5
+        print(f"epoch {epoch}: val acc@1 {acc1:.3f} acc@5 {acc5:.3f} "
+              f"({count} images)")
+        return acc1, acc5, count
+
+    def train_batches(epoch):
+        if synthetic:
+            return synthetic_batches(args.batch_size, args.image_size,
+                                     args.num_classes, steps_per_epoch,
+                                     seed=args.seed + epoch,
+                                     learnable=learnable)
+        sampler = (ra_sampler_indices if args.repeated_aug
+                   else distributed_indices)
+        return iterate_batches(
+            train_ds, sampler(len(train_ds), 0, 1, epoch, seed=args.seed),
+            args.batch_size, args.image_size, train=True,
+            seed=args.seed + epoch, num_threads=args.workers,
+            interpolation=interpolation)
 
     if args.evaluate:
-        acc1, acc5 = validate(start_epoch)
-        return {"acc1": acc1, "acc5": acc5}
+        acc1, acc5, count = validate(start_epoch)
+        return {"acc1": acc1, "acc5": acc5, "val_count": count,
+                "decoders": decoders}
 
     history, step_loss, data_s, step_s = [], [], [], []
+    val_count = 0
     for epoch in range(start_epoch, args.epochs):
         t0 = t1 = time.perf_counter()
         losses = AverageMeter("loss")
         drop_gen.manual_seed(args.seed + 1000 * (epoch + 1))
-        batches = synthetic_batches(args.batch_size, args.image_size,
-                                    args.num_classes, steps_per_epoch,
-                                    seed=args.seed + epoch,
-                                    learnable=learnable)
-        for i, b in enumerate(batches):
+        prof = None
+        for i, b in enumerate(train_batches(epoch)):
+            if args.profile_dir and epoch == start_epoch:
+                if i == PROFILE_STEPS[0]:
+                    prof = start_profile(device)
+                elif i == PROFILE_STEPS[1] and prof is not None:
+                    stop_profile(prof, args.profile_dir)
+                    prof = None
+            rng = np.random.default_rng(
+                [args.seed + 1, epoch * steps_per_epoch + i])
             images = torch.from_numpy(b["image"]).to(device)
             labels = torch.from_numpy(b["label"]).to(device)
+            if not synthetic:
+                decoders["train"].append(b["decoder"])
+                aug_gen.manual_seed(int(rng.integers(2 ** 62)))
+                images = random_flip(normalize(images), aug_gen)
+                if args.random_erase > 0:
+                    images = random_erasing(rng, images, aug_gen,
+                                            args.random_erase)
             if use_soft:
-                rng = np.random.default_rng(
-                    [args.seed + 1, epoch * steps_per_epoch + i])
                 images, labels = mixup_cutmix(
                     rng, images, labels, args.num_classes,
                     mixup_alpha=max(args.mixup, 1e-8),
                     cutmix_alpha=max(args.cutmix, 1e-8),
                     label_smoothing=args.label_smooth)
-            t2 = time.perf_counter()
+            t2 = time.perf_counter()  # the batch on the device
             metrics = train_step(
                 state, {"image": images, "label": labels}, loss_fn,
                 grad_clip_norm=args.clip_grad, teacher=teacher,
@@ -319,8 +493,10 @@ def main(argv=None) -> Dict[str, Any]:
                 print(f"epoch {epoch} [{i}/{steps_per_epoch}] {losses}")
             if not np.isfinite(loss):
                 raise FloatingPointError(f"non-finite loss at epoch {epoch}")
+        if prof is not None:  # the epoch ended before the last traced step
+            stop_profile(prof, args.profile_dir)
 
-        acc1, acc5 = validate(epoch)
+        acc1, acc5, val_count = validate(epoch)
         is_best = acc1 > best_acc1
         best_acc1 = max(acc1, best_acc1)
         save_checkpoint(args.output_dir, state, epoch, best_acc1,
@@ -336,7 +512,8 @@ def main(argv=None) -> Dict[str, Any]:
         history.append({"epoch": epoch, "loss": losses.avg, "acc1": acc1})
 
     return {"best_acc1": best_acc1, "history": history, "loss": step_loss,
-            "data_s": data_s, "step_s": step_s, "state": state}
+            "data_s": data_s, "step_s": step_s, "val_count": val_count,
+            "decoders": decoders, "state": state, "teacher": teacher}
 
 
 if __name__ == "__main__":

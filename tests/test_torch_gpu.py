@@ -15,6 +15,7 @@ DeiT token tail's out to one, as y.
 """
 
 import copy
+import math
 
 import pytest
 import torch
@@ -1315,3 +1316,92 @@ def test_efficientnet_train_step_on_the_card(cuda):
         tol = (dict(rtol=1e-4, atol=1e-5) if "running" in k
                else dict(rtol=5e-4, atol=5e-5))
         torch.testing.assert_close(v, out["cpu"][1][k], **tol, msg=k)
+
+
+def _jpeg_tree(root, per_class, seed=0):
+    """Smooth seeded JPEGs of two sizes under root/class_<c>/."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c, n in enumerate(per_class):
+        os.makedirs(root / f"class_{c}")
+        for i in range(n):
+            coarse = rng.integers(0, 256, (4, 5, 3)).astype(np.uint8)
+            size = (75, 50) if (c + i) % 2 else (48, 64)
+            Image.fromarray(coarse).resize(size, Image.BICUBIC).save(
+                root / f"class_{c}" / f"{i}.jpg", quality=90)
+    return str(root)
+
+
+@pytest.mark.parametrize("interpolation", ["bilinear", "bicubic"])
+def test_imagefolder_decoder_on_the_card_matches_its_plain_version(
+        cuda, tmp_path, interpolation):
+    """The loader, threaded as the trainer runs it, against the same
+    decoder image by image (bitwise), and the card's normalisation of its
+    batch against the host's."""
+    import numpy as np
+
+    from mrla_tpu_torch.data import (
+        ImageFolder,
+        choose_decoder,
+        iterate_batches,
+        native,
+        normalize,
+    )
+
+    ds = ImageFolder(_jpeg_tree(tmp_path, [5, 4]))
+    decoder = choose_decoder(ds, interpolation)
+    assert decoder == ("native" if interpolation == "bilinear"
+                       and native.available() else "pil")
+    idx = np.random.default_rng(0).permutation(len(ds))
+    for train in (True, False):
+        batches = list(iterate_batches(ds, idx, 4, 40, train=train, seed=3,
+                                       num_threads=3,
+                                       interpolation=interpolation))
+        assert [len(b["label"]) for b in batches] == (
+            [4, 4] if train else [4, 4, 1])
+        for bi, b in enumerate(batches):
+            assert b["decoder"] == decoder
+            ids = idx[bi * 4:(bi + 1) * 4]
+            if decoder == "native":
+                want = native.decode_batch([ds.samples[i][0] for i in ids],
+                                           40, train, seed=3 * 1_000_003
+                                           + bi, num_threads=1)
+            else:
+                rng = np.random.default_rng((3, bi))
+                want = np.stack([ds.load_train(i, 40, rng, interpolation)
+                                 if train else
+                                 ds.load_eval(i, 40, interpolation)
+                                 for i in ids])
+            np.testing.assert_array_equal(b["image"], want)
+            x = torch.from_numpy(b["image"])
+            torch.testing.assert_close(normalize(x.cuda()).cpu(),
+                                       normalize(x), rtol=0, atol=1e-5)
+
+
+def test_classification_cli_on_an_imagefolder_on_the_card(cuda, tmp_path):
+    """The trainer on a JPEG tree on the card: finite losses, the decoder
+    of every batch, each val image counted once (a ragged last batch), no
+    kernel of the port."""
+    from mrla_tpu_torch.data import native
+    from mrla_tpu_torch.train import cli
+
+    root = tmp_path / "tree"
+    _jpeg_tree(root / "train", [6, 6])
+    _jpeg_tree(root / "val", [3, 2], seed=1)
+    for c in _no_kernel_counters():
+        c.reset()
+    res = cli.main(["-a", "resnet50_mrlal", "--layers", "1", "1", "1", "1",
+                    "--data", str(root), "--image-size", "32",
+                    "--num-classes", "2", "-b", "4", "--epochs", "1",
+                    "--workers", "2", "--random-erase", "0.25", "--mixup",
+                    "0.8", "--device", "cuda", "--output-dir",
+                    str(tmp_path / "run")])
+    assert all(c.calls == 0 for c in _no_kernel_counters())
+    assert len(res["loss"]) == 3 and all(map(math.isfinite, res["loss"]))
+    want = "native" if native.available() else "pil"
+    assert res["decoders"] == {"train": [want] * 3, "val": [want] * 2}
+    assert res["val_count"] == 5

@@ -314,14 +314,20 @@ def test_cli_deit_recipe_with_distillation(tmp_path):
     assert res["state"].model.blocks[-1].drop_path == 0.1
 
 
-def test_cli_needs_a_card_unless_asked_and_refuses_the_next_slice(
+def test_cli_needs_a_card_unless_asked_and_raises_on_missing_sources(
         tmp_path):
+    """Without ``--device cpu`` the CLI asks for the card; a fine-tune or
+    teacher directory without a checkpoint and a data root without class
+    directories raise, as in the JAX trainer."""
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--output-dir", str(tmp_path)])
-    for extra in (["--data", str(tmp_path)], ["--repeated-aug"],
-                  ["--finetune", str(tmp_path)],
-                  ["--profile-dir", str(tmp_path)],
-                  ["--teacher-resume", str(tmp_path)]):
-        with pytest.raises(SystemExit, match="next slice"):
-            cli.main(["--device", "cpu", "--output-dir", str(tmp_path),
-                      *extra])
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="--finetune"):
+        _cli(tmp_path / "ft", "--finetune", str(empty))
+    with pytest.raises(FileNotFoundError, match="--teacher-resume"):
+        _cli(tmp_path / "t", "--distillation-type", "hard",
+             "--teacher-resume", str(empty))
+    (tmp_path / "data" / "train").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="no class directories"):
+        _cli(tmp_path / "d", "--data", str(tmp_path / "data"))
