@@ -186,6 +186,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      of deit_tiny_distilled, its logits equal to the reloaded
      checkpoint's, while the random-init teacher (the injected fault) must
      fail that check; (h) the phase's wall time, within REAL_WALL_S;
+  8e. RetinaNet, COCO data and the detection trainer's options, at full
+     depth, published widths and 80 classes: (a) retinanet_r50mrlal_fpn_1x
+     _coco served through the module under bf16 autocast at 800 x 1344,
+     batch 8, from a seeded detector (testing.retinanet_serving_model): 2
+     requests with every kernel count 0, a detection in every image;
+     against the port's fp32 forward on the CPU for 2 images each level's
+     (cls, reg) maps and get_bboxes' detections within RETINA_TOLS, while
+     three injected wiring faults (the first extra conv fed P5, the anchors
+     scale-major, levels P4..P7 through an unshared head) must each fail
+     it; img/s over 20 forwards and the peak memory; then detect_forward
+     with start_level=1, add_extra_convs="on_input": its P3..P7 against
+     the module's within DET_TOLS["pyramid"], the mega-tail and epilogue
+     launches per forward the detection trunk's table; (b) one full-depth
+     RetinaNet training step (800 x 800, batch 2, fp32) on the card
+     against the CPU: loss terms, num_pos, the gradients of the head and
+     of P3..P7 within RETINA_STEP_TOLS, while α and 1 - α swapped, the
+     avg_factor per image and neg_iou_thr 0.5 must each fail it; (c) a
+     seeded COCO-format tree in a temporary dir (64 train, 20 val JPEGs at
+     COCO-like sizes, COCO's sparse category ids, polygon, RLE, crowd and
+     degenerate annotations) and detect/train_cli.py main on it at 800 x
+     1344, batch 8, one epoch (8 steps; 2 + 6 timed) for RetinaNet fp32
+     (then the val split's mAP, scored with no threshold),
+     RetinaNet --bf16, faster_rcnn fp32 and mask_rcnn --remat: ms / step,
+     img/s, the peak memory, the loader's wait, finite losses, the
+     RoIAlign launches per step by shape (none for RetinaNet, no other
+     kernel); --eval-only --resume (val count exactly 20: the ragged
+     tail's padding skipped) and --eval-only --torch of the trained
+     weights must give the run's mAP and evaluate its weights bit for bit
+     (which differ from the init); --resume continues at epoch 1; (d)
+     one --bf16 step's loss terms of RetinaNet and of the faster preset
+     (on the fp32 step's sampled rois) against the fp32 step on the card
+     within BF16_STEP_TOL, which the ground-truth boxes cast to bf16 must
+     fail, and against the same losses recomputed on the CPU in fp32 from
+     the step's own head outputs within BF16_LOSS_TOL, which the logits
+     fed to the focal / softmax loss in bf16 must fail; the phase's wall
+     time;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
      its main path;
@@ -1992,7 +2028,7 @@ REAL_FT_PX, REAL_FT_BATCH, REAL_AUX_BATCH = 384, 32, 16
 REAL_TIMED = (1, 5)  # the steps of ms / step: after the first, before the
 # profiled steps 5-14 (cli.PROFILE_STEPS) of the ResNet run
 REAL_WALL_S = 150.0
-REAL_DEVICE = "cuda"  # the device of phase 8d
+CARD = "cuda"  # the device of phases 8d and 8e (a CPU rehearsal sets it)
 REAL_RECIPES = {
     "resnet": CLS_RECIPES["resnet"] + ["--bf16", "--epochs", "1"],
     "deit": CLS_RECIPES["deit"] + ["--bf16", "--epochs", "1",
@@ -2885,7 +2921,7 @@ def check_decoders(root: str, found: dict, smi: str) -> None:
             one_s = time.perf_counter() - t0
             err = int(np.abs(b["image"].astype(np.int32) - ref).max())
             x = torch.from_numpy(b["image"])
-            norm_err = (normalize(x.to(REAL_DEVICE)).cpu()
+            norm_err = (normalize(x.to(CARD)).cpu()
                         - normalize(x)).abs().max().item()
             print(f"decoder check {interp} {'train' if train else 'eval'} "
                   f"(bs{REAL_BATCH}, {REAL_PX} px): {b['decoder']}, the "
@@ -2927,7 +2963,7 @@ def real_recipe(name: str, root: str, found: dict, smi: str,
         argv = REAL_RECIPES[name] + [
             "--data", root, "--num-classes", str(REAL_CLASSES),
             "--workers", str(REAL_WORKERS), "--print-freq", "1000",
-            "--device", REAL_DEVICE, "--output-dir", out]
+            "--device", CARD, "--output-dir", out]
         if profile_dir:
             argv += ["--profile-dir", profile_dir]
         torch.cuda.empty_cache()
@@ -2996,7 +3032,7 @@ def check_finetune(root: str, work: str) -> None:
 
     arch = "deit_mrlal_tiny_patch16_224"
     common = ["-a", arch, "--opt", "adamw", "--lr", "5e-4", "--bf16",
-              "--print-freq", "1000", "--device", REAL_DEVICE]
+              "--print-freq", "1000", "--device", CARD]
     pre = os.path.join(work, "pre")
     cli.main(common + ["--data", "synthetic", "--image-size", "224",
                        "--num-classes", "1000", "-b", str(REAL_AUX_BATCH),
@@ -3053,7 +3089,7 @@ def check_teacher_resume(work: str) -> None:
     common = ["--data", "synthetic", "--image-size", str(REAL_PX),
               "--num-classes", str(REAL_CLASSES), "-b", str(REAL_AUX_BATCH),
               "--synthetic-steps", "2", "--epochs", "1", "--print-freq",
-              "1000", "--device", REAL_DEVICE]
+              "1000", "--device", CARD]
     t_dir = os.path.join(work, "teacher")
     cli.main(["-a", "resnet50", "--output-dir", t_dir, *common])
     student = ["-a", "deit_tiny_distilled_patch16_224", "--opt", "adamw",
@@ -3062,12 +3098,12 @@ def check_teacher_resume(work: str) -> None:
                               os.path.join(work, "student")])
     fault = cli.main(student + ["--output-dir",
                                 os.path.join(work, "student_random")])
-    saved = create_model("resnet50", device=REAL_DEVICE,
+    saved = create_model("resnet50", device=CARD,
                          num_classes=REAL_CLASSES)
     saved.load_state_dict(read_model_state_dict(t_dir,
-                                                map_location=REAL_DEVICE))
-    x = torch.randn(REAL_AUX_BATCH, REAL_PX, REAL_PX, 3, device=REAL_DEVICE,
-                    generator=torch.Generator(REAL_DEVICE).manual_seed(5))
+                                                map_location=CARD))
+    x = torch.randn(REAL_AUX_BATCH, REAL_PX, REAL_PX, 3, device=CARD,
+                    generator=torch.Generator(CARD).manual_seed(5))
     with torch.no_grad():
         want = saved.eval()(x)
         err = (res["teacher"](x) - want).abs().max().item()
@@ -3124,6 +3160,631 @@ def train_real_data(smi: str) -> None:
                              f"{launches}")
     if wall > REAL_WALL_S:
         raise AssertionError(f"phase 8d took {wall:.1f} s")
+
+
+# Phase 8e: RetinaNet, the COCO loader and the detection trainer's options.
+# All at full depth, published widths and 80 classes.  (a) RetinaNet served
+# through the module under bf16 autocast (800 x 1344, batch 8) against the
+# port's fp32 forward on the CPU for 2 images: each level's (cls, reg) maps
+# relative to their norm ("maps"), and get_bboxes on the card, fed the CPU's
+# maps, against get_bboxes on the CPU ("boxes": the share of the CPU's
+# detections that no card detection of the same class meets at IoU >=
+# RETINA_MATCH_IOU); the same share of the card's end-to-end bf16
+# detections is printed beside it (bf16 reorders near-equal scores, so it
+# is no check); then the pyramid of detect_forward with RetinaNet's neck
+# against the module's P3..P7 (DET_TOLS["pyramid"]).
+RETINA_PRESET = "retinanet_r50mrlal_fpn_1x_coco"
+RETINA_PATH = "retinanet_r50mrlal"
+RETINA_PYRAMID_PATH = "retinanet_r50mrlal detect_forward"
+RETINA_MATCH_IOU = 0.7
+# limits between the sound reading and the least injected fault (both
+# printed by this script; readings in PERF.md)
+RETINA_TOLS = {"maps": 0.25, "boxes": 0.05}
+# extra_on_p5: the first extra conv fed P5 where C5 is wanted ("on_output",
+# the conv's first 256 input channels);
+# scale_major: the anchors scale-major where mmdet's are ratio-major;
+# unshared: levels P4..P7 through a second head at the mmdet init
+RETINA_FAULTS = {"extra_on_p5": "maps", "scale_major": "boxes",
+                 "unshared": "maps"}
+# (b) one training step at 800 x 800, batch 2, fp32 (TF32 off), card against
+# CPU: the loss terms relative, num_pos exactly, the gradients of the head's
+# parameters and of P3..P7 relative to their norms
+RETINA_STEP_PX, RETINA_STEP_BATCH = 800, 2
+RETINA_STEP_TOLS = {"loss": 1e-3, "grad": 0.02}
+# alpha: α and 1 - α swapped; avg_per_image: each image's loss over its own
+# positives; neg_iou: neg_iou_thr 0.5 where mmdet's is 0.4
+RETINA_STEP_FAULTS = ("alpha", "avg_per_image", "neg_iou")
+# (c) the trainer on a seeded COCO-format tree: COCO_TRAIN train and COCO_VAL
+# val JPEGs at COCO-like sizes (h, w), COCO's 80 sparse category ids
+COCO_TRAIN, COCO_VAL = 64, 20
+COCO_SIZES = [(480, 640), (640, 480), (375, 500)]
+COCO_HW, COCO_BATCH = (800, 1344), 8
+COCO_WARMUP = 2  # steps before the timed ones, of the epoch's 8
+COCO_ROI = {(COCO_BATCH, 512, 7, 256): "box head"}
+COCO_MASK_ROI = {(COCO_BATCH, 128, 14, 256): "mask head",
+                 (COCO_BATCH, 128, 28, TRAIN_MAX_GT): "gt mask crop"}
+# (d) one --bf16 step against the fp32 step on the card (same weights and
+# batch; the faster preset on the fp32 step's sampled rois): each loss term
+# relative (BF16_STEP_TOL, above the bf16 forward's own rounding), which the
+# ground-truth boxes cast to bf16 with the images must fail.  The
+# second fault, the logits fed to the focal / softmax loss in bf16, moves a
+# term by less than that rounding (the step compares sums over 10^5 to 10^7
+# elements), so the bf16 step's terms are also held to the same loss calls
+# recomputed on the CPU in fp32 from the step's own head outputs
+# (BF16_LOSS_TOL: the card's fp32 sums in another order), which that fault
+# must fail.
+BF16_STEP_TOL = 1.5e-3
+BF16_LOSS_TOL = 5e-6
+RETINA_WALL_S = 150.0  # the phase's target wall time, printed beside it
+
+
+def retina_maps_error(got, ref) -> float:
+    """Largest relative error (norm) of any level's cls or reg map."""
+    return max(rel_err(g, r) for gl, rl in zip(got, ref)
+               for g, r in zip(gl, rl))
+
+
+def boxes_miss(got, ref) -> float:
+    """The share of the reference's detections (CPU, fp32) that no card
+    detection of the same class meets at IoU >= RETINA_MATCH_IOU (or, for
+    a box clipped to zero area, within a pixel at every corner)."""
+    from mrla_tpu_torch.detect.bbox import bbox_overlaps
+
+    missed = total = 0
+    for b in range(ref[0].shape[0]):
+        rv, gv = ref[3][b], got[3][b].cpu()
+        rb, gb = ref[0][b][rv], got[0][b].cpu().float()[gv]
+        same = ref[2][b][rv][:, None] == got[2][b].cpu()[gv][None, :]
+        iou = bbox_overlaps(rb, gb) * same
+        # a box clipped to zero area at the border matches by its corners
+        near = ((rb[:, None] - gb[None]).abs().amax(-1) <= 1.0) & same
+        hit = ((iou >= RETINA_MATCH_IOU) | near).any(1)
+        missed += int((~hit).sum())
+        total += len(rb)
+    return missed / max(total, 1)
+
+
+def retina_forward(model, x):
+    """The module's bf16 forward and get_bboxes on the card."""
+    from mrla_tpu_torch.detect.retinanet import get_bboxes
+
+    with torch.inference_mode(), torch.autocast(x.device.type,
+                                                torch.bfloat16):
+        outs = model(x)
+        return outs, get_bboxes(outs, (x.shape[1], x.shape[2]))
+
+
+def retina_errors(model, x2, ref) -> dict:
+    """maps: the card's bf16 maps; boxes: get_bboxes on the card of the
+    CPU's maps; end_to_end: the card's bf16 detections (printed only)."""
+    from mrla_tpu_torch.detect.retinanet import get_bboxes
+
+    outs, dets = retina_forward(model, x2)
+    dev = [(c.to(x2.device), r.to(x2.device)) for c, r in ref["outs"]]
+    return {"maps": retina_maps_error(outs, ref["outs"]),
+            "boxes": boxes_miss(get_bboxes(dev, tuple(x2.shape[1:3])),
+                                ref["dets"]),
+            "end_to_end": boxes_miss(dets, ref["dets"])}
+
+
+def faulty_retina_errors(model, x2, ref, kind: str) -> dict:
+    """retina_errors with one wiring fault (RETINA_FAULTS)."""
+    import types
+
+    import mrla_tpu_torch.detect.fpn as fpn_mod
+    import mrla_tpu_torch.detect.retinanet as rn
+
+    anchors, forward = rn.level_anchors, model.forward
+    fpn_forward = fpn_mod.fpn_forward
+    if kind == "extra_on_p5":
+        def on_p5(neck, inputs, num_outs=5, start_level=0,
+                  add_extra_convs=None):  # P5 has the weight's first C ins
+            (w, b), *rest = neck["extra"]
+            neck = {**neck, "extra": [(w[:, :w.shape[0]], b), *rest]}
+            return fpn_forward(neck, inputs, num_outs, start_level,
+                               "on_output")
+        fpn_mod.fpn_forward = on_p5
+    elif kind == "scale_major":
+        def scale_major(level_outputs, *a, **kw):
+            out = []
+            for anc in anchors(level_outputs, *a, **kw):  # [HW * 9, 4]
+                out.append(anc.reshape(-1, 3, 3, 4).transpose(1, 2)
+                           .reshape(-1, 4))
+            return out
+        rn.level_anchors = scale_major
+    else:
+        fresh = rn.RetinaHead(generator=torch.Generator().manual_seed(9)).to(
+            CARD)
+        model.forward = types.MethodType(lambda self, x: tuple(
+            (self.bbox_head if i == 0 else fresh)(f)
+            for i, f in enumerate(self.neck(self.backbone(x)))), model)
+    try:
+        return retina_errors(model, x2, ref)
+    finally:
+        fpn_mod.fpn_forward = fpn_forward
+        rn.level_anchors = anchors
+        model.forward = forward
+
+
+def check_retina_dets(out) -> None:
+    boxes, scores, labels, valid = out[1]
+    if boxes.shape != (DET_BATCH, 100, 4) or not (
+            torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("RetinaNet detections not finite or of the "
+                             "wrong shape")
+    if valid.sum(1).min() < 1:
+        raise AssertionError(f"an image without detections: "
+                             f"{valid.sum(1).tolist()}")
+
+
+def finite_pyramid(out) -> None:
+    if len(out) != 5 or not all(torch.isfinite(p).all() for p in out):
+        raise AssertionError("pyramid not finite or not 5 levels")
+
+
+def serve_retinanet(smi: str) -> None:
+    """(a) RetinaNet inference through the module, the check against the
+    CPU with its three faults, throughput; the detect_forward pyramid with
+    RetinaNet's neck and its launches."""
+    import copy
+
+    from mrla_tpu_torch.detect.retinanet import get_bboxes
+    from mrla_tpu_torch.serving import detect as det
+    from mrla_tpu_torch.testing import images, retinanet_serving_model
+
+    t0 = time.perf_counter()
+    host_model = retinanet_serving_model(0)
+    gen = torch.Generator().manual_seed(4)
+    host = [images(gen, DET_BATCH, DET_HW) for _ in range(DET_REQUESTS)]
+    t1 = time.perf_counter()
+    x2h = host[0][:2]
+    with torch.no_grad():
+        pyr = host_model.neck(host_model.backbone(x2h))
+        outs = tuple(host_model.bbox_head(f) for f in pyr)
+        ref = {"outs": outs, "dets": get_bboxes(outs, DET_HW), "pyr": pyr}
+    print(f"retinanet: seeded and spread in {t1 - t0:.1f} s; fp32 CPU "
+          f"forward of 2 images in {time.perf_counter() - t1:.1f} s; CPU "
+          f"detections per image {ref['dets'][3].sum(1).tolist()}")
+    model = copy.deepcopy(host_model).to(CARD).eval()
+    batches = [xb.to(CARD) for xb in host]
+    desc = f"{DET_HW[0]}x{DET_HW[1]} bs{DET_BATCH} bf16"
+    want = {k: {} for k in all_counters()}
+    outs_c, _, _ = counted(lambda xb: retina_forward(model, xb), batches,
+                           RETINA_PATH, want, check_retina_dets, desc)
+    print(f"{RETINA_PATH}: detections per image "
+          f"{outs_c[0][1][3].sum(1).tolist()}, labels of image 0 "
+          f"{outs_c[0][1][2][0, :8].tolist()}")
+    del outs_c
+    x2 = x2h.to(CARD)
+    errs = retina_errors(model, x2, ref)
+    print(f"{RETINA_PATH} against the fp32 CPU forward (2 images): "
+          + ", ".join(f"{k} {v:.4g} (tol {RETINA_TOLS.get(k)})"
+                      for k, v in errs.items()))
+    over = [k for k, v in RETINA_TOLS.items() if not errs[k] <= v]
+    if over:
+        raise AssertionError(f"{RETINA_PATH}: {over} beyond tolerance")
+    for kind, metric in RETINA_FAULTS.items():
+        fe = faulty_retina_errors(model, x2, ref, kind)
+        print(f"{RETINA_PATH} with the fault {kind}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in fe.items()))
+        if not fe[metric] > RETINA_TOLS[metric]:
+            raise AssertionError(f"the {metric} check misses the fault "
+                                 f"{kind}")
+    throughput(lambda xb: retina_forward(model, xb), batches, RETINA_PATH,
+               smi, consume=lambda out: out[1][1].sum(), batch=DET_BATCH,
+               desc=desc)
+
+    params = det.prepare_detect_params(host_model, dtype=torch.bfloat16,
+                                       device=CARD)
+    want = {k: {} for k in all_counters()}
+    want["megatail"] = {s: n for s, (_, n) in DET_MEGATAIL_SHAPES.items()}
+    want["epilogue"] = {s: n for s, (_, n) in DET_EPILOGUE_SHAPES.items()}
+    fwd = lambda xb: det.detect_forward(params, xb, start_level=1,
+                                        add_extra_convs="on_input")
+    counted(fwd, batches, RETINA_PYRAMID_PATH, want, finite_pyramid, desc)
+    got = fwd(x2)
+    err = max(rel_err(g, r) for g, r in zip(got, ref["pyr"]))
+    print(f"{RETINA_PYRAMID_PATH} (start_level=1, on_input) P3..P7 against "
+          f"the module's fp32 CPU pyramid: {err:.4g} (tol "
+          f"{DET_TOLS['pyramid']}); shapes "
+          f"{[tuple(p.shape[1:3]) for p in got]}")
+    if not err <= DET_TOLS["pyramid"]:
+        raise AssertionError(f"{RETINA_PYRAMID_PATH}: pyramid error {err}")
+    del model, params, batches
+    torch.cuda.empty_cache()
+
+
+def retina_step(model, batch, loss_fn=None):
+    """One RetinaNet loss + backward of ``model`` on ``batch`` (tensors on
+    its device): (loss terms, head parameter gradients, P3..P7
+    gradients)."""
+    from mrla_tpu_torch.detect import losses
+
+    loss_fn = loss_fn or losses.retinanet_loss
+    model.zero_grad(set_to_none=True)
+    pyr = [p.detach().requires_grad_() for p in
+           model.neck(model.backbone(batch["image"]))]
+    out = loss_fn(tuple(model.bbox_head(p) for p in pyr), batch["gt_boxes"],
+                  batch["gt_labels"], batch["gt_valid"], num_classes=80)
+    out["loss"].backward()
+    grads = {k: p.grad.detach().cpu() for k, p in
+             model.bbox_head.named_parameters()}
+    return ({k: v.detach().cpu() for k, v in out.items()}, grads,
+            [p.grad.detach().cpu() for p in pyr])
+
+
+def retina_step_errors(got, ref) -> dict:
+    if int(got[0]["num_pos"]) != int(ref[0]["num_pos"]):
+        return {"loss": math.inf, "grad": math.inf}
+    loss = max(abs(got[0][k].item() - ref[0][k].item()) / abs(ref[0][k].item())
+               for k in ("loss_cls", "loss_bbox"))
+    grad = max([rel_err(got[1][k], ref[1][k]) for k in ref[1]]
+               + [rel_err(g, r) for g, r in zip(got[2], ref[2])])
+    return {"loss": loss, "grad": grad}
+
+
+def faulty_loss(kind: str):
+    """retinanet_loss with one fault (RETINA_STEP_FAULTS)."""
+    import functools
+
+    from mrla_tpu_torch.detect import losses
+
+    if kind == "alpha":
+        focal = losses.sigmoid_focal_loss
+
+        def loss(*a, **kw):
+            losses.sigmoid_focal_loss = lambda l, t, alpha, gamma: focal(
+                l, t, 1.0 - alpha, gamma)
+            try:
+                return losses.retinanet_loss(*a, **kw)
+            finally:
+                losses.sigmoid_focal_loss = focal
+        return loss
+    if kind == "neg_iou":
+        return functools.partial(losses.retinanet_loss, neg_iou_thr=0.5)
+
+    def per_image(outs, boxes, labels, valid, **kw):
+        parts = [losses.retinanet_loss(
+            tuple((c[i:i + 1], r[i:i + 1]) for c, r in outs),
+            boxes[i:i + 1], labels[i:i + 1], valid[i:i + 1], **kw)
+            for i in range(boxes.shape[0])]
+        return {k: sum(p[k] for p in parts) for k in parts[0]}
+    return per_image
+
+
+def check_retina_step() -> None:
+    """(b) One full-depth RetinaNet step on the card against the CPU, and
+    three loss faults."""
+    import copy
+
+    from mrla_tpu_torch.testing import detection_batch, training_retinanet
+
+    t0 = time.perf_counter()
+    model = training_retinanet(0, num_classes=80, px=(256, 256))
+    batch = detection_batch(5, RETINA_STEP_BATCH, RETINA_STEP_PX, 80,
+                            TRAIN_MAX_GT, False)
+    ref = retina_step(model, batch)
+    print(f"retinanet step: full depth {RETINA_STEP_PX}x{RETINA_STEP_PX} bs"
+          f"{RETINA_STEP_BATCH} fp32, CPU step in "
+          f"{time.perf_counter() - t0:.1f} s; num_pos "
+          f"{int(ref[0]['num_pos'])}, losses "
+          f"{ {k: round(v.item(), 6) for k, v in ref[0].items()} }")
+    card = copy.deepcopy(model).to(CARD)
+    cb = {k: v.to(CARD) for k, v in batch.items()}
+    errs = retina_step_errors(retina_step(card, cb), ref)
+    print("retinanet step against the CPU: " + ", ".join(
+        f"{k} {v:.4g} (tol {RETINA_STEP_TOLS[k]})" for k, v in errs.items()))
+    if any(not v <= RETINA_STEP_TOLS[k] for k, v in errs.items()):
+        raise AssertionError(f"retinanet step beyond tolerance: {errs}")
+    for kind in RETINA_STEP_FAULTS:
+        fe = retina_step_errors(retina_step(card, cb, faulty_loss(kind)), ref)
+        print(f"retinanet step with the fault {kind}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in fe.items()))
+        if not fe["loss"] > RETINA_STEP_TOLS["loss"]:
+            raise AssertionError(f"the step check misses the fault {kind}")
+    del card
+    torch.cuda.empty_cache()
+
+
+def coco_argv(root: str, preset: str, out: str, extra=()):
+    return ["--preset", preset, "--data", "coco",
+            "--train-ann", os.path.join(root, "instances_train.json"),
+            "--train-imgs", os.path.join(root, "train"),
+            "--val-ann", os.path.join(root, "instances_val.json"),
+            "--val-imgs", os.path.join(root, "val"),
+            "--img-size", *map(str, COCO_HW), "--batch-size",
+            str(COCO_BATCH), "--num-classes", "80", "--max-gt",
+            str(TRAIN_MAX_GT), "--epochs", "1", "--device", CARD,
+            "--output-dir", out, *extra]
+
+
+def coco_run(root: str, preset: str, out: str, smi: str, extra=()):
+    """train_cli.main on the tree for one epoch (8 steps) with the counts
+    set to 0 just before and read just after: ms / step over the steps
+    after COCO_WARMUP, img/s, the peak memory, the loader's wait, finite
+    losses, the RoIAlign launches per step by shape (none for RetinaNet)."""
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.kernels import roi_align_patch
+
+    counters = all_counters()
+    steps = COCO_TRAIN // COCO_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    res = train_cli.main(coco_argv(root, preset, out, extra))
+    torch.cuda.synchronize()
+    launches, per_step = split_roi_counts(roi_align_patch.counter, steps)
+    others = {k: c.launches for k, c in counters.items()
+              if k != "roi_align"}
+    line = json.loads(open(os.path.join(out, "log.jsonl")).readline())
+    timed = steps - COCO_WARMUP
+    step_ms = sum(res["step_s"][COCO_WARMUP:]) / timed * 1e3
+    wait_ms = sum(res["data_s"][COCO_WARMUP:]) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = {k: v for k, v in line.items() if k.startswith("loss")}
+    desc = (f"coco {preset}{' ' + ' '.join(extra) if extra else ''}, "
+            f"{COCO_HW[0]}x{COCO_HW[1]} bs{COCO_BATCH}")
+    print(f"training {desc}: {step_ms:.2f} ms/step, "
+          f"{COCO_BATCH / step_ms * 1e3:.2f} img/s over {timed} steps after "
+          f"{COCO_WARMUP} (the loader's wait {wait_ms:.1f} ms/step beside "
+          f"it; every step's {[round(v * 1e3, 1) for v in res['data_s']]} "
+          f"ms), peak memory {peak:.2f} GiB, on {smi}; losses {losses}; "
+          f"RoIAlign launches per step {per_step['roi_align']} forward, "
+          f"{per_step['roi_align_bwd']} backward; mAP {line.get('mAP')}, "
+          f"val count {line.get('val_count')}")
+    if len(res["loss"]) != steps or not all(
+            math.isfinite(v) for v in res["loss"] + list(losses.values())):
+        raise AssertionError(f"{desc}: losses {res['loss']}, {losses}")
+    want = {}
+    if not preset.startswith("retinanet"):
+        want = dict(COCO_ROI)
+        if preset == MASK_PRESET:
+            want.update(COCO_MASK_ROI)
+    want_fwd = {s: 1.0 for s in want}
+    want_bwd = {("bwd", *s): 1.0 for s in want if s[2] != 28}
+    if (per_step["roi_align"] != want_fwd
+            or per_step["roi_align_bwd"] != want_bwd or any(others.values())):
+        raise AssertionError(f"{desc}: launches per step {per_step}, "
+                             f"others {others}; want {want_fwd}, {want_bwd}")
+    return res, line
+
+
+def train_coco(work: str, smi: str) -> None:
+    """(c) The trainer on a seeded COCO-format tree: the four runs, then
+    --eval-only --resume, --torch and --resume."""
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.testing import COCO_CATEGORY_IDS, write_coco_split
+
+    root = os.path.join(work, "coco")
+    t0 = time.perf_counter()
+    for split, n, seed in (("train", COCO_TRAIN, 0), ("val", COCO_VAL, 1)):
+        write_coco_split(root, split, n, COCO_SIZES, COCO_CATEGORY_IDS, seed,
+                         extent=(0.3, 0.8))
+    print(f"coco tree: {COCO_TRAIN} train, {COCO_VAL} val JPEGs of "
+          f"{COCO_SIZES} (h, w), {len(COCO_CATEGORY_IDS)} sparse category "
+          f"ids, in {time.perf_counter() - t0:.1f} s")
+    run_dir = os.path.join(work, "retina")
+    # from the mmdet init (the spread head's logits diverge in training);
+    # scored with no threshold, so that its detections reach the mAP
+    # that --eval-only and --torch must give again
+    evals = ("--score-thr", "0.0")
+    res, line = coco_run(root, RETINA_PRESET, run_dir, smi, evals)
+    coco_run(root, RETINA_PRESET, os.path.join(work, "retina_bf16"), smi,
+             ("--bf16", "--eval-every", "0"))
+    coco_run(root, DET_PRESET, os.path.join(work, "faster"), smi,
+             ("--eval-every", "0"))
+    coco_run(root, MASK_PRESET, os.path.join(work, "mask"), smi,
+             ("--remat", "--eval-every", "0"))
+
+    keys = ("mAP", "AP50", "AR@100", "val_count")
+    base = coco_argv(root, RETINA_PRESET, os.path.join(work, "eval"),
+                     evals)
+    trained = res["model"].state_dict()
+    ev = train_cli.main(base + ["--eval-only", "--resume", run_dir])
+    pth = os.path.join(work, "trained.pth")
+    torch.save(trained, pth)
+    tv = train_cli.main(base + ["--eval-only", "--torch", pth])
+    init = train_cli.build_model(train_cli.parse_args(base),
+                                 torch.device(CARD)).state_dict()
+    # the weights each evaluated, bit for bit the run's (the mAP of a
+    # model trained 8 steps from its init may read 0 either way); the
+    # init, which a resume that restored nothing would keep, differs
+    differ = lambda sd: [k for k, v in sd.items()
+                         if not torch.equal(v, trained[k])]
+    differs = {"--resume": differ(ev["model"].state_dict()),
+               "--torch": differ(tv["model"].state_dict()),
+               "init": differ(init)}
+    n_keys = len(trained)
+    del res, ev["model"], tv["model"], init, trained
+    resumed = train_cli.main(coco_argv(
+        root, RETINA_PRESET, run_dir, ("--epochs", "2", "--resume", run_dir,
+                                       "--eval-every", "0")))
+    lines = [json.loads(s) for s in open(os.path.join(run_dir, "log.jsonl"))]
+    print(f"coco eval: the run's {[line[k] for k in keys]}; --eval-only "
+          f"--resume {[ev[k] for k in keys]}; --eval-only --torch of the "
+          f"trained weights {[tv[k] for k in keys]}; --resume ran epoch "
+          f"{lines[-1]['epoch']} ({len(resumed['loss'])} steps, losses "
+          f"{[round(v, 4) for v in resumed['loss']]}); state_dict entries "
+          f"that differ from the run's: " + ", ".join(
+              f"{k} {len(v)} of {n_keys}" for k, v in differs.items()))
+    if ev["val_count"] != COCO_VAL or any(
+            ev[k] != line[k] or tv[k] != line[k] for k in keys):
+        raise AssertionError("coco eval: --eval-only or --torch disagrees "
+                             "with the run, or the val count is off")
+    if differs["--resume"] or differs["--torch"] or not differs["init"]:
+        raise AssertionError(f"coco eval: the weights evaluated are not "
+                             f"the run's ({differs['--resume'][:3]}, "
+                             f"{differs['--torch'][:3]}), or the run left "
+                             f"its init as it was")
+    if lines[-1]["epoch"] != 1 or len(resumed["loss"]) != COCO_TRAIN // \
+            COCO_BATCH:
+        raise AssertionError("--resume did not continue at epoch 1")
+
+
+def to_host(tree):
+    """Tensors of a nest of tuples, lists and dicts, copied to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree
+
+
+def loss_terms(out) -> dict:
+    return {k: v.item() for k, v in out.items()
+            if k.startswith("loss") and k != "loss"}
+
+
+def bf16_step_errors(preset: str) -> dict:
+    """(d) One --bf16 step (autocast) against the fp32 step on the card, the
+    same weights and batch (the faster preset on the fp32 step's sampled
+    rois): each loss term relative ("step").  And the bf16 step's loss
+    terms against the same loss calls recomputed on the CPU in fp32 from
+    the step's own (bf16) head outputs ("loss"), sound and with the fault:
+    the focal / softmax loss taking its logits in bf16.  And the step with
+    its ground-truth boxes cast to bf16 against the fp32 step
+    ("fault_boxes")."""
+    import types
+
+    import torch.nn.functional as F
+
+    from mrla_tpu_torch.detect import losses as rl
+    from mrla_tpu_torch.detect import two_stage_train as tst
+    from mrla_tpu_torch.testing import (
+        detection_batch,
+        train_uniforms,
+        training_detector,
+        training_retinanet,
+    )
+
+    batch = {k: v.to(CARD) for k, v in detection_batch(
+        7, COCO_BATCH, TRAIN_PX, 80, TRAIN_MAX_GT, False).items()}
+    retina = preset == RETINA_PRESET
+    if retina:
+        model = training_retinanet(0, num_classes=80, px=(256, 256))
+    else:
+        model = training_detector(0, num_classes=80, px=(256, 256))
+    model = model.to(CARD)
+    rand = None
+    if not retina:
+        side = [-(-TRAIN_PX // 4)]
+        for _ in range(4):
+            side.append(-(-side[-1] // 2))
+        rand = train_uniforms(3, COCO_BATCH, 3 * sum(h * h for h in side),
+                              TRAIN_MAX_GT + model.num_proposals)
+    kept = {}
+
+    def run(bf16: bool, record=None, gt_boxes=batch["gt_boxes"]):
+        """The step's loss terms; ``record`` gets each loss call (function,
+        arguments, keywords)."""
+        def hook(name, fn, *args, **kw):
+            if name == "R-CNN targets" and "t" in kept:
+                return kept["t"]
+            out = fn(*args, **kw)
+            if name == "R-CNN targets":
+                kept["t"] = out
+            if record is not None and name in ("RPN targets + loss",
+                                               "R-CNN loss"):
+                record.append((fn, args, kw))
+            return out
+
+        with torch.no_grad(), torch.autocast(CARD, torch.bfloat16,
+                                             enabled=bf16):
+            if retina:
+                args = (model(batch["image"]), gt_boxes,
+                        batch["gt_labels"], batch["gt_valid"])
+                if record is not None:
+                    record.append((rl.retinanet_loss, args,
+                                   {"num_classes": 80}))
+                out = rl.retinanet_loss(*args, num_classes=80)
+            else:
+                _, out, _ = tst.faster_rcnn_train_loss(
+                    model, batch["image"], gt_boxes,
+                    batch["gt_labels"], batch["gt_valid"], rand, stage=hook)
+        return loss_terms(out)
+
+    def on_host(record) -> dict:
+        terms = {}
+        for fn, args, kw in record:
+            terms.update(loss_terms(fn(*to_host(args), **kw)))
+        return terms
+
+    rel = lambda got, ref: {k: abs(got[k] - ref[k]) / abs(ref[k])
+                            for k in ref}
+    fp32 = run(False)
+    rec = []
+    bf16 = run(True, rec)
+    focal, tf = rl.sigmoid_focal_loss, tst.F
+    # autocast would widen exp, log1p and log_softmax to fp32 again
+    plain = lambda: torch.autocast(CARD, enabled=False)
+
+    def focal_bf16(l, t, a=0.25, g=2.0):
+        with plain():
+            return focal(l.bfloat16(), t.bfloat16(), a, g).float()
+
+    def log_softmax_bf16(x, d):
+        with plain():
+            return F.log_softmax(x.bfloat16(), d).float()
+
+    rl.sigmoid_focal_loss = focal_bf16
+    tst.F = types.SimpleNamespace(**{k: getattr(F, k) for k in dir(F)
+                                     if not k.startswith("__")})
+    tst.F.log_softmax = log_softmax_bf16
+    bad_rec = []
+    try:
+        bad = run(True, bad_rec)
+    finally:
+        rl.sigmoid_focal_loss, tst.F = focal, tf
+    host, bad_host = on_host(rec), on_host(bad_rec)
+    bad_boxes = run(True, gt_boxes=batch["gt_boxes"].bfloat16().float())
+    del model, rec, bad_rec
+    torch.cuda.empty_cache()
+    return {"step": rel(bf16, fp32), "loss": rel(bf16, host),
+            "fault_step": rel(bad, fp32), "fault_loss": rel(bad, bad_host),
+            "fault_boxes": rel(bad_boxes, fp32),
+            "bf16": bf16, "fp32": fp32}
+
+
+def check_bf16_steps() -> None:
+    fmt = lambda d: "{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items()) \
+        + "}"
+    for preset in (RETINA_PRESET, DET_PRESET):
+        e = bf16_step_errors(preset)
+        print(f"--bf16 step of {preset} ({TRAIN_PX}x{TRAIN_PX} bs"
+              f"{COCO_BATCH}) against the fp32 step on the card: "
+              f"{fmt(e['step'])} (tol {BF16_STEP_TOL}; bf16 {e['bf16']}, "
+              f"fp32 {e['fp32']}); its loss terms against the same losses "
+              f"on the CPU in fp32 from its own head outputs: "
+              f"{fmt(e['loss'])} (tol {BF16_LOSS_TOL}); with the logits fed "
+              f"to the loss in bf16: step {fmt(e['fault_step'])}, loss "
+              f"{fmt(e['fault_loss'])}; with the gt boxes in bf16: step "
+              f"{fmt(e['fault_boxes'])}")
+        if max(e["step"].values()) > BF16_STEP_TOL:
+            raise AssertionError(f"--bf16 {preset}: loss terms {e['step']}")
+        if not max(e["fault_boxes"].values()) > BF16_STEP_TOL:
+            raise AssertionError(f"the --bf16 step check misses the bf16 "
+                                 f"gt boxes on {preset}")
+        if max(e["loss"].values()) > BF16_LOSS_TOL:
+            raise AssertionError(f"--bf16 {preset}: the loss on the card "
+                                 f"{e['loss']}")
+        if not max(e["fault_loss"].values()) > BF16_LOSS_TOL:
+            raise AssertionError(f"the --bf16 check misses the bf16-loss "
+                                 f"fault on {preset}")
+
+
+def detection_rest(smi: str) -> None:
+    """Phase 8e: RetinaNet, the COCO loader and the trainer's options."""
+    t0 = time.perf_counter()
+    serve_retinanet(smi)
+    check_retina_step()
+    with tempfile.TemporaryDirectory() as work:
+        train_coco(work, smi)
+    check_bf16_steps()
+    print(f"detection phase 8e: {time.perf_counter() - t0:.1f} s (target "
+          f"{RETINA_WALL_S})")
 
 
 def kernels_line(rows, launches, per_forward):
@@ -3235,6 +3896,7 @@ def main() -> int:
     for key, got in zip((launches, per_forward), model_zoo(smi)):
         key.update(got)
     train_real_data(smi)
+    detection_rest(smi)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

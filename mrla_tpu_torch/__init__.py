@@ -20,7 +20,11 @@ sources in ``csrc/``) for every TPU kernel it runs:
   * two-stage detection serving (``detect/``, ``serving/detect.py``: Faster
     / Mask R-CNN on the MRLA backbone + FPN) with the RoIAlign kernel;
   * two-stage detection training (``detect/train_cli.py``, the synthetic
-    source in ``data/``) with the RoIAlign backward kernel;
+    source in ``data/``) with the RoIAlign backward kernel; RetinaNet
+    (``detect/retinanet.py``, ``detect/losses.py``; no kernel of its own),
+    COCO-format data (``data/coco.py``) and the trainer's checkpoints,
+    ``--resume``, ``--eval-only``, ``--torch``, ``--pretrained-backbone``,
+    ``--no-norm-eval`` and ``--remat``;
   * the MRLA-base family: the eq. 6 and LA (eq. 4) ops, the
     resnet50/101/152_mrlab, resnet50_mrlab22 and resnet50/101_la_eq4
     models, the eq. 6 serving engine ``serving/resnet_mrlab.py`` and the

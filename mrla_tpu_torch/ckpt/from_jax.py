@@ -93,6 +93,17 @@ the mmdet-keyed ``state_dict`` the port's detectors load:
     params/mask_head/upsample [kh,kw,I,O]    -> roi_head.mask_head.upsample
                                                 [I,O,kh,kw], taps rot180
     params/mask_head/conv_logits             -> roi_head.mask_head.conv_logits
+
+``retinanet_state_dict_from_jax`` is the exact inverse of the JAX package's
+``convert_mmdet_state_dict`` for a Flax ``RetinaNet``: the backbone and the
+neck as above (3 laterals, 3 ``fpn_conv`` and 2 ``extra_conv`` ->
+``neck.fpn_convs.{0..4}``) and the head:
+
+    params/bbox_head/{cls,reg}_conv{i}       -> bbox_head.{cls,reg}_convs.{i}.conv.*
+    params/bbox_head/retina_{cls,reg}        -> bbox_head.retina_{cls,reg}.*
+
+``converter_for`` also takes a detection preset's name (``retinanet_*``,
+``faster_rcnn_*``, ``mask_rcnn_*``).
 """
 
 from __future__ import annotations
@@ -247,6 +258,25 @@ def detector_state_dict_from_jax(variables: Mapping
                 _conv(sd, f"{pre}.conv_logits", p)
             else:
                 raise ValueError(f"unrecognized mask_head module: {name}")
+    return sd
+
+
+def retinanet_state_dict_from_jax(variables: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a Flax ``RetinaNet`` (numpy or
+    array leaves) -> the mmdet-keyed state_dict (the inverse of
+    ``convert_mmdet_state_dict``)."""
+    params = variables["params"]
+    sd = detector_state_dict_from_jax(
+        {"params": {k: v for k, v in params.items() if k != "bbox_head"},
+         "batch_stats": variables["batch_stats"]})
+    for name, p in params["bbox_head"].items():
+        if name.startswith(("cls_conv", "reg_conv")):
+            _conv(sd, f"bbox_head.{name[:3]}_convs.{int(name[8:])}.conv", p)
+        elif name in ("retina_cls", "retina_reg"):
+            _conv(sd, f"bbox_head.{name}", p)
+        else:
+            raise ValueError(f"unrecognized bbox_head module: {name}")
     return sd
 
 
@@ -514,7 +544,12 @@ def patchconvnet_state_dict_from_jax(variables: Mapping
 
 def converter_for(arch: str):
     """The function that takes ``arch``'s Flax variables to the port's
-    state_dict (``vit_state_dict_from_jax`` with the arch's variant bound)."""
+    state_dict (``vit_state_dict_from_jax`` with the arch's variant bound);
+    ``arch`` may also name a detection preset."""
+    if arch.startswith("retinanet"):
+        return retinanet_state_dict_from_jax
+    if arch.startswith(("faster_rcnn", "mask_rcnn")):
+        return detector_state_dict_from_jax
     if arch.startswith("deit"):
         variant = ("light" if "_mrlal" in arch else
                    "base" if "_mrlab" in arch else "plain")

@@ -1,7 +1,7 @@
 """Data sources and transforms of the port (numpy on the host, PyTorch on
 the device): the synthetic sources, ImageFolder with its threaded loader
 (PIL or the native C++ JPEG decoder), the samplers, CIFAR and iNat
-readers, the transforms and RandAugment."""
+readers, COCO detection data, the transforms and RandAugment."""
 
 from mrla_tpu_torch.data.cifar import CIFAR, iterate_cifar
 from mrla_tpu_torch.data.imagefolder import (
@@ -9,6 +9,7 @@ from mrla_tpu_torch.data.imagefolder import (
     choose_decoder,
     iterate_batches,
 )
+from mrla_tpu_torch.data.coco import CocoDetection, coco_batches
 from mrla_tpu_torch.data.inat import INatDataset
 from mrla_tpu_torch.data.randaugment import rand_augment
 from mrla_tpu_torch.data.samplers import (
@@ -35,7 +36,8 @@ from mrla_tpu_torch.data.transforms import (
     random_resized_crop_params,
 )
 
-__all__ = ["CIFAR", "IMAGENET_MEAN", "IMAGENET_STD", "INatDataset",
+__all__ = ["CIFAR", "CocoDetection", "IMAGENET_MEAN", "IMAGENET_STD",
+           "INatDataset", "coco_batches",
            "ImageFolder", "MixDraw", "apply_mixup_cutmix",
            "center_crop_resize", "choose_decoder", "distributed_indices",
            "draw_erasing", "draw_mixup_cutmix", "eval_transform_params",

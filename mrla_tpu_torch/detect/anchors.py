@@ -12,14 +12,17 @@ Per level, with ``base_size = stride``:
     flattened (H, W, A): y outer, x inner, anchor minor -- the order of an
     NHWC ``[B, H, W, A * K]`` map reshaped to ``[B, H * W * A, K]``.
 
-Anchors depend only on shapes: plain numpy, made once per image size.
+Anchors depend only on shapes: plain numpy, made once per image size
+(``device_anchors`` keeps them on their device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def base_anchors(
@@ -74,3 +77,31 @@ def pyramid_anchors(
         )
         for fs, s in zip(featmap_sizes, strides)
     ]
+
+
+def num_base_anchors(
+    scales_per_octave: int = 3, ratios: Sequence[float] = (0.5, 1.0, 2.0)
+) -> int:
+    """Anchors a cell: one per (ratio, scale)."""
+    return scales_per_octave * len(ratios)
+
+
+@functools.lru_cache(maxsize=8)
+def device_anchors(featmap_sizes: tuple, strides: tuple, scale: float,
+                   scales_per_octave: int, ratios: tuple, device: str) -> list:
+    """:func:`pyramid_anchors` as tensors on ``device``, made once per
+    image size (the arguments are the cache's key, hence tuples)."""
+    return [torch.from_numpy(a).to(device) for a in pyramid_anchors(
+        featmap_sizes, strides, octave_base_scale=scale,
+        scales_per_octave=scales_per_octave, ratios=ratios)]
+
+
+def level_anchors(level_outputs, strides: Sequence[int],
+                  octave_base_scale: float = 4.0, scales_per_octave: int = 3,
+                  ratios: Sequence[float] = (0.5, 1.0, 2.0)) -> list:
+    """The anchors [H * W * A, 4] of each level of ``level_outputs`` (per
+    level (cls [B, H, W, ...], reg)), on their device."""
+    sizes = tuple(tuple(c.shape[1:3]) for c, _ in level_outputs)
+    return device_anchors(sizes, tuple(strides[: len(sizes)]),
+                          float(octave_base_scale), scales_per_octave,
+                          tuple(ratios), str(level_outputs[0][0].device))

@@ -3,8 +3,8 @@
 The port's counterpart of the JAX package's ``detect/bbox.py``:
 ``DeltaXYWHBBoxCoder`` encode / decode (with ``wh_ratio_clip``), pairwise
 IoU, and greedy NMS that returns exactly ``max_out`` slots and a validity
-mask, class-wise through mmdet's coordinate-offset trick.  Every function
-takes a leading batch dimension or none.
+mask, class-wise through mmdet's coordinate-offset trick, and soft-NMS.
+Every function takes a leading batch dimension or none.
 
 NMS: the JAX package runs ``max_out`` steps of argmax-and-suppress.  Here
 the same greedy result comes from the candidates sorted by score (stable,
@@ -145,6 +145,62 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor,
     idxs.scatter_(1, slot, torch.where(keep, order, -1))
     idxs = idxs[:, :max_out]
     return idxs.reshape(*lead, max_out), (idxs >= 0).reshape(*lead, max_out)
+
+
+def soft_nms_fixed(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_threshold: float,
+    max_out: int,
+    method: str = "linear",
+    sigma: float = 0.5,
+    min_score: float = 1e-3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft-NMS with a fixed output size (mmdet's soft-NMS for R-CNN
+    testing): each pick decays the remaining scores instead of removing
+    its overlaps, ``linear`` s *= 1 - iou where iou > ``iou_threshold``,
+    ``gaussian`` s *= exp(-iou^2 / sigma) everywhere; picks stop once the
+    best remaining score is <= ``min_score``.
+
+    boxes [..., N, 4], scores [..., N] (entries <= 0 are absent).  Returns
+    (indices [..., max_out] int64, -1 where empty; decayed scores
+    [..., max_out]; valid [..., max_out] bool) in pick order: ``max_out``
+    steps of argmax (the first of equal maxima) and decay, as the JAX
+    package's loop."""
+    if method not in ("linear", "gaussian"):
+        raise ValueError(f"unknown soft-nms method: {method}")
+    lead = scores.shape[:-1]
+    n = scores.shape[-1]
+    boxes = boxes.reshape(-1, n, 4)
+    live = scores.reshape(-1, n)
+    live = torch.where(live > 0.0, live, torch.full_like(live, -math.inf))
+    iou = bbox_overlaps(boxes, boxes)
+    rows = torch.arange(live.shape[0], device=live.device)
+    idxs = torch.full((live.shape[0], max_out), -1, dtype=torch.long,
+                      device=live.device)
+    out_scores = torch.zeros((live.shape[0], max_out), dtype=live.dtype,
+                             device=live.device)
+    valid = torch.zeros((live.shape[0], max_out), dtype=torch.bool,
+                        device=live.device)
+    for i in range(max_out):
+        best = live.argmax(-1)
+        bs = live[rows, best]
+        ok = bs > min_score
+        idxs[:, i] = torch.where(ok, best, -1)
+        out_scores[:, i] = torch.where(ok, bs, 0.0)
+        valid[:, i] = ok
+        row = iou[rows, best]
+        if method == "linear":
+            decay = torch.where(row > iou_threshold, 1.0 - row, 1.0)
+        else:
+            decay = torch.exp(-(row * row) / sigma)
+        # decay only finite (not yet picked) entries: -inf * 0 would be
+        # NaN on exact duplicates (the linear decay is 0 at iou 1)
+        decayed = torch.where(torch.isfinite(live), live * decay, live)
+        live = torch.where(ok[:, None], decayed, live)
+        live[rows, best] = -math.inf
+    return (idxs.reshape(*lead, max_out), out_scores.reshape(*lead, max_out),
+            valid.reshape(*lead, max_out))
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

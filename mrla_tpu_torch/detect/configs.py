@@ -7,7 +7,7 @@ reference MMDetection config (the port's own copy of the JAX package's
     in [256, 512, 1024, 2048] -> 256 x 5 levels, max-pool extra level)
   * mask_rcnn_r50mrlal_fpn_1x_coco (the same neck, plus the mask head)
   * retinanet_r50mrlal_fpn_1x_coco (start_level=1,
-    add_extra_convs='on_input'; its detector is not ported yet)
+    add_extra_convs='on_input'; ``detect/retinanet.py``)
 
 Schedules: '1x' = 12 epochs, lr steps at 8 and 11, batch 16.
 """

@@ -1,17 +1,26 @@
 """Feature Pyramid Network neck (MMDetection ``FPN`` semantics), PyTorch.
 
-The two-stage presets' neck (faster_rcnn_r50mrlal_fpn.py:15-19):
-in_channels [256, 512, 1024, 2048], out_channels 256, num_outs 5,
-``add_extra_convs=None``: a 1x1 lateral conv on each input, a top-down
-pathway that adds each level's nearest upsample (to the exact size below,
-as mmdet's ``interpolate(size=...)``) into the level below, a 3x3 output
-conv per level, and the extra level as a stride-2 max pool of window 1 on
-the last output.  No norm layers.  ``state_dict`` keys are mmdet's:
-``lateral_convs.{i}.conv.*`` and ``fpn_convs.{i}.conv.*``.
+A 1x1 lateral conv on each used input (``inputs[start_level:]``, at most
+``num_outs`` of them), a top-down pathway that adds each level's nearest
+upsample (to the exact size below, as mmdet's ``interpolate(size=...)``)
+into the level below, a 3x3 output conv per level, then the extra levels
+up to ``num_outs``:
+
+  * ``add_extra_convs=None`` (the two-stage presets,
+    faster_rcnn_r50mrlal_fpn.py:15-19): a stride-2 max pool of window 1 on
+    the last output;
+  * ``"on_input"`` (RetinaNet, retinanet_r50mrlal_fpn.py: ``start_level=1``,
+    P3..P7): a stride-2 3x3 conv on the last used input for the first
+    extra level, on the previous output for the next;
+  * ``"on_output"``: stride-2 3x3 convs on the previous output.
+
+No norm layers.  ``state_dict`` keys are mmdet's:
+``lateral_convs.{i}.conv.*`` and ``fpn_convs.{i}.conv.*``, the extra convs
+continuing ``fpn_convs`` past the laterals (the JAX package names them
+``extra_conv{i}``).
 
 :func:`fpn_forward` is the neck as a function of its weights, shared by
-the module and the serving engine.  RetinaNet's neck (``start_level=1``,
-``add_extra_convs='on_input'``) is not ported yet.
+the module and the serving engine.
 """
 
 from __future__ import annotations
@@ -42,11 +51,12 @@ def upsample_nearest_to(x: torch.Tensor, h_out: int, w_out: int
 
 
 def fpn_forward(neck: Dict, inputs: Sequence[torch.Tensor],
-                num_outs: int = 5) -> tuple:
+                num_outs: int = 5, start_level: int = 0,
+                add_extra_convs: Optional[str] = None) -> tuple:
     """The neck on NHWC ``inputs`` with weights ``neck`` = {"lateral":
-    [(w, b)], "fpn": [(w, b)]} in the torch layout -> ``num_outs`` NHWC
-    levels."""
-    used = list(inputs)[:num_outs]
+    [(w, b)], "fpn": [(w, b)][, "extra": [(w, b)]]} in the torch layout ->
+    ``num_outs`` NHWC levels."""
+    used = list(inputs)[start_level:][:num_outs]
     n = len(used)
     laterals = [conv2d_nhwc(used[i], *neck["lateral"][i]) for i in range(n)]
     for i in range(n - 1, 0, -1):
@@ -54,8 +64,14 @@ def fpn_forward(neck: Dict, inputs: Sequence[torch.Tensor],
         laterals[i - 1] = laterals[i - 1] + upsample_nearest_to(
             laterals[i], th, tw)
     outs = [conv2d_nhwc(laterals[i], *neck["fpn"][i]) for i in range(n)]
-    while len(outs) < num_outs:  # max pool, window 1, stride 2
-        outs.append(outs[-1][:, ::2, ::2])
+    while len(outs) < num_outs:
+        if add_extra_convs is None:  # max pool, window 1, stride 2
+            outs.append(outs[-1][:, ::2, ::2])
+            continue
+        src = (used[-1] if add_extra_convs == "on_input" and len(outs) == n
+               else outs[-1])
+        outs.append(conv2d_nhwc(src, *neck["extra"][len(outs) - n],
+                                stride=2))
     return tuple(outs)
 
 
@@ -86,21 +102,36 @@ def xavier_uniform(layer: nn.Module,
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256, num_outs: int = 5,
+                 start_level: int = 0,
+                 add_extra_convs: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.num_outs = num_outs
-        used = list(in_channels)[:num_outs]
+        if add_extra_convs not in (None, "on_input", "on_output"):
+            raise ValueError(f"add_extra_convs={add_extra_convs!r}")
+        self.num_outs, self.start_level = num_outs, start_level
+        self.add_extra_convs = add_extra_convs
+        used = list(in_channels)[start_level:][:num_outs]
+        self.num_laterals = len(used)
         self.lateral_convs = nn.ModuleList(
             [ConvModule(c, out_channels, 1, generator) for c in used])
-        self.fpn_convs = nn.ModuleList(
-            [ConvModule(out_channels, out_channels, 3, generator)
-             for _ in used])
+        convs = [ConvModule(out_channels, out_channels, 3, generator)
+                 for _ in used]
+        if add_extra_convs is not None:
+            for i in range(num_outs - len(used)):
+                cin = (used[-1] if add_extra_convs == "on_input" and i == 0
+                       else out_channels)
+                convs.append(ConvModule(cin, out_channels, 3, generator))
+        self.fpn_convs = nn.ModuleList(convs)
 
     def weights(self) -> Dict:
+        n = self.num_laterals
+        pairs = [(m.conv.weight, m.conv.bias) for m in self.fpn_convs]
         return {"lateral": [(m.conv.weight, m.conv.bias)
                             for m in self.lateral_convs],
-                "fpn": [(m.conv.weight, m.conv.bias) for m in self.fpn_convs]}
+                "fpn": pairs[:n], "extra": pairs[n:]}
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> tuple:
-        """NHWC (C2, C3, C4, C5) -> NHWC (P2, .., P6)."""
-        return fpn_forward(self.weights(), inputs, self.num_outs)
+        """NHWC (C2, C3, C4, C5) -> ``num_outs`` NHWC levels: (P2, .., P6)
+        for the two-stage presets, (P3, .., P7) for RetinaNet."""
+        return fpn_forward(self.weights(), inputs, self.num_outs,
+                           self.start_level, self.add_extra_convs)

@@ -1,7 +1,8 @@
 """Anchor / roi assignment (MMDetection ``MaxIoUAssigner``), PyTorch.
 
 The port's counterpart of the JAX package's ``detect/targets.py``
-(``max_iou_assign``), batched over a leading image axis.  Per anchor:
+(``max_iou_assign``, ``anchor_targets``), batched over a leading image
+axis.  Per anchor:
 
   1. ``-1`` (ignore) everywhere, then ``0`` (background) where the anchor's
      best IoU over all gts is below ``neg_iou_thr``;
@@ -20,9 +21,11 @@ every anchor background.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from mrla_tpu_torch.detect.bbox import bbox_overlaps
+from mrla_tpu_torch.detect.bbox import bbox2delta, bbox_overlaps, gather_rows
 
 
 def max_iou_assign(
@@ -55,3 +58,35 @@ def max_iou_assign(
         last = (take * index).amax(dim=-2)  # the highest gt + 1, or 0
         assigned = torch.where(last > 0, last, assigned)
     return assigned
+
+
+def anchor_targets(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    num_classes: int,
+    pos_iou_thr: float = 0.5,
+    neg_iou_thr: float = 0.4,
+    min_pos_iou: float = 0.0,
+    target_means=(0.0, 0.0, 0.0, 0.0),
+    target_stds=(1.0, 1.0, 1.0, 1.0),
+) -> Tuple[torch.Tensor, ...]:
+    """Dense targets of a batch (mmdet ``AnchorHead._get_targets_single``).
+    anchors [N, 4], gt_boxes [B, G, 4] padded, gt_labels [B, G], gt_valid
+    [B, G].  Returns (labels [B, N] int64: the gt's class on positives,
+    ``num_classes`` elsewhere; label_weights [B, N]: 1 on positives and
+    negatives, 0 on ignored anchors; bbox_targets [B, N, 4]: encoded
+    deltas on positives, 0 elsewhere; bbox_weights [B, N]; num_pos [B])."""
+    assigned = max_iou_assign(anchors, gt_boxes, gt_valid, pos_iou_thr,
+                              neg_iou_thr, min_pos_iou)
+    pos = assigned > 0
+    gt_idx = (assigned - 1).clamp(min=0)
+    labels = torch.where(pos, torch.gather(gt_labels.long(), 1, gt_idx),
+                         num_classes)
+    label_weights = (assigned >= 0).float()
+    deltas = bbox2delta(anchors.expand(gt_boxes.shape[0], -1, -1),
+                        gather_rows(gt_boxes, gt_idx), target_means,
+                        target_stds)
+    bbox_targets = torch.where(pos[..., None], deltas, 0.0)
+    return labels, label_weights, bbox_targets, pos.float(), pos.sum(-1)

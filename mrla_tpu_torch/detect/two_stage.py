@@ -26,14 +26,13 @@ Tensors are NHWC at every public function, as in the JAX package.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrla_tpu_torch.detect.anchors import pyramid_anchors
+from mrla_tpu_torch.detect.anchors import device_anchors
 from mrla_tpu_torch.detect.bbox import (
     delta2bbox,
     gather_rows,
@@ -87,14 +86,6 @@ class RPNHead(nn.Module):
                 conv2d_nhwc(t, self.rpn_reg.weight, self.rpn_reg.bias))
 
 
-@functools.lru_cache(maxsize=8)
-def _anchors(featmap_sizes: tuple, strides: tuple, scale: float,
-             scales_per_octave: int, ratios: tuple, device: str) -> list:
-    return [torch.from_numpy(a).to(device) for a in pyramid_anchors(
-        featmap_sizes, strides, octave_base_scale=scale,
-        scales_per_octave=scales_per_octave, ratios=ratios)]
-
-
 def rpn_proposals(
     level_outputs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     img_shape: Tuple[int, int],
@@ -111,8 +102,8 @@ def rpn_proposals(
     strides = tuple(strides[: len(level_outputs)])
     sizes = tuple(tuple(c.shape[1:3]) for c, _ in level_outputs)
     device = level_outputs[0][0].device
-    anchors = _anchors(sizes, strides, float(scales[0]), len(scales),
-                       tuple(ratios), str(device))
+    anchors = device_anchors(sizes, strides, float(scales[0]), len(scales),
+                             tuple(ratios), str(device))
     b = level_outputs[0][0].shape[0]
     cand_boxes, cand_scores, cand_lvl = [], [], []
     for li, ((cls_map, reg_map), anc) in enumerate(zip(level_outputs,
@@ -208,21 +199,22 @@ class FasterRCNN(nn.Module):
     -> bbox head.  ``forward`` returns the raw stage outputs; decode with
     :func:`rcnn_detections` / :func:`two_stage_predict`.  RoIAlign uses the
     grid ``roi_sampling_ratio`` (0 = the presets' adaptive grid; 2 = the
-    JAX module's default)."""
+    JAX module's default); ``remat`` recomputes each backbone block in the
+    backward."""
 
     with_mask = False
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 80,
                  rpn_nms_pre: int = 1000, num_proposals: int = 1000,
-                 roi_sampling_ratio: int = 2,
+                 roi_sampling_ratio: int = 2, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rpn_nms_pre, self.num_proposals = rpn_nms_pre, num_proposals
         self.num_classes = num_classes
         self.roi_sampling_ratio = roi_sampling_ratio
         self.backbone = ResNetMRLALight(list(layers), features_only=True,
-                                        generator=generator)
+                                        generator=generator, remat=remat)
         self.neck = FPN(out_channels=FPN_CHANNELS, generator=generator)
         self.rpn_head = RPNHead(FPN_CHANNELS, FPN_CHANNELS, 3, generator)
         self.roi_head = nn.Module()

@@ -35,12 +35,12 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from mrla_tpu_torch.detect.anchors import device_anchors
 from mrla_tpu_torch.detect.bbox import bbox2delta, gather_rows
 from mrla_tpu_torch.detect.targets import max_iou_assign
 from mrla_tpu_torch.detect.two_stage import (
     RCNN_TARGET_STDS,
     RPN_STRIDES,
-    _anchors,
     rpn_proposals,
     run_stage,
 )
@@ -78,7 +78,7 @@ def rpn_anchors(featmap_sizes, device, strides: Sequence[int] = RPN_STRIDES,
                 ratios: Sequence[float] = (0.5, 1.0, 2.0)) -> torch.Tensor:
     """All anchors of the pyramid [N, 4], levels in order, each level in
     (H, W, A) order as the NHWC maps flatten."""
-    return torch.cat(_anchors(
+    return torch.cat(device_anchors(
         tuple(tuple(s) for s in featmap_sizes),
         tuple(strides[: len(featmap_sizes)]), float(scales[0]), len(scales),
         tuple(ratios), str(device)))

@@ -19,9 +19,11 @@ running-variance rule, ``models/common.py``); DropPath at ``drop_path`` on
 every epilogue and dropout at ``drop_rate`` before ``fc``, their masks from
 the generator ``nn.set_generator`` hands them; ``remat`` recomputes each
 block in the backward (``torch.utils.checkpoint``, the same masks, the
-running statistics updated once); ``fused_epilogue`` runs each block's tail
-as one autograd ``Function`` (``ops/fused_train.py``) when DropPath is
-inactive, as the JAX model does.  Eval mode ignores all four.
+running statistics updated once; in eval mode too, wherever autograd
+records, as a detector with frozen BN trains); ``fused_epilogue`` runs each
+block's tail as one autograd ``Function`` (``ops/fused_train.py``) when
+DropPath is inactive, as the JAX model does.  Eval mode ignores the other
+three.
 """
 
 from __future__ import annotations
@@ -142,7 +144,7 @@ class ResNetMRLALight(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         outs = []
-        remat = self.remat and self.training and torch.is_grad_enabled()
+        remat = self.remat and torch.is_grad_enabled()
         for stage_idx in range(len(self.layers)):
             for block in getattr(self, f"layer{stage_idx + 1}"):
                 x = remat_block(block, x) if remat else block(x)

@@ -10,9 +10,11 @@ flatten to the NHWC [7, 7, C] one, so the RoI features are flattened as
 they lie) and, where present, the mask head.
 
 ``detect_forward`` is the pyramid export (the JAX package's
-``serving.detect_forward``): the trunk with every block's MRLA tail in the
-epilogue or mega-tail kernel, then the FPN; inference-identical to
-``MRLABackboneFPN`` in eval.
+``serving.detect_forward``, with its ``start_level`` / ``add_extra_convs``):
+the trunk with every block's MRLA tail in the epilogue or mega-tail kernel,
+then the FPN; inference-identical to ``MRLABackboneFPN`` in eval (and to
+RetinaNet's trunk and neck, whose extra convs ``prepare_detect_params``
+takes from ``neck.fpn_convs`` past the laterals).
 
 ``two_stage_detections`` is what the JAX detection daemon jits for a
 two-stage preset (``serving/server.py``'s ``fwd``), without the HTTP
@@ -63,9 +65,11 @@ def prepare_detect_params(
     device="cuda",
 ) -> Dict:
     """An mmdet-keyed detector (``FasterRCNN`` / ``MaskRCNN`` /
-    ``MRLABackboneFPN``, or its ``state_dict``) -> serving params on
-    ``device``: {"trunk", "neck"[, "rpn_head", "bbox_head"[, "mask_head"]]},
-    weights and biases in ``dtype``."""
+    ``RetinaNet`` / ``MRLABackboneFPN``, or its ``state_dict``) -> serving
+    params on ``device``: {"trunk", "neck"[, "rpn_head", "bbox_head"[,
+    "mask_head"]]}, weights and biases in ``dtype``.  The R-CNN heads are
+    taken where present; RetinaNet's head is not (its trunk and neck
+    serve through :func:`detect_forward`)."""
     dev = resolve_device(device)
     src = (model_or_state_dict.state_dict()
            if isinstance(model_or_state_dict, nn.Module)
@@ -89,10 +93,14 @@ def prepare_detect_params(
         backbone, layers, dtype, dev, with_head=False)}
     n_lat = len({k.split(".")[2] for k in sd
                  if k.startswith("neck.lateral_convs.")})
+    n_fpn = len({k.split(".")[2] for k in sd
+                 if k.startswith("neck.fpn_convs.")})
     out["neck"] = {
         "lateral": [conv(f"neck.lateral_convs.{i}.conv")
                     for i in range(n_lat)],
         "fpn": [conv(f"neck.fpn_convs.{i}.conv") for i in range(n_lat)],
+        "extra": [conv(f"neck.fpn_convs.{i}.conv")
+                  for i in range(n_lat, n_fpn)],
     }
     if "rpn_head.rpn_conv.weight" in sd:
         w_cls = sd["rpn_head.rpn_cls.weight"]
@@ -133,16 +141,20 @@ def prepare_detect_params(
 @torch.inference_mode()
 def detect_forward(serving_params: Dict, x: torch.Tensor,
                    layers: Sequence[int] = (3, 4, 6, 3),
-                   stage=run_stage, microbatch: int = 0) -> tuple:
-    """[B, H, W, 3] images on the params' device -> the pyramid P2..P6,
-    NHWC in the serving dtype.  ``microbatch`` > 0 runs trunk and FPN as
+                   stage=run_stage, microbatch: int = 0,
+                   start_level: int = 0,
+                   add_extra_convs: Optional[str] = None) -> tuple:
+    """[B, H, W, 3] images on the params' device -> the pyramid, NHWC in
+    the serving dtype: P2..P6 by default, P3..P7 with RetinaNet's neck
+    (``start_level=1, add_extra_convs="on_input"``; the params' neck then
+    holds its extra convs).  ``microbatch`` > 0 runs trunk and FPN as
     chains of that many images, one after another
     (``serving/microbatch.py``; 0 serves the batch unsplit)."""
     def one(images):
         feats = stage("backbone", _trunk_impl, serving_params["trunk"],
                       images, layers, 32)
         return stage("FPN", fpn_mod.fpn_forward, serving_params["neck"],
-                     feats)
+                     feats, 5, start_level, add_extra_convs)
 
     parts = chains(x, microbatch)
     if parts is None:

@@ -32,6 +32,12 @@ Detection training (``chip_smoke.py``'s training phase and
 ``tests/test_torch_detect_train.py``): ``training_detector`` (the same
 spread heads on any depth), ``train_uniforms`` (the samplers' draws, handed
 to the CPU and the card alike) and ``detection_batch``.
+
+RetinaNet (``chip_smoke.py`` phase 8e, ``tests/test_torch_retinanet.py``):
+``retinanet_serving_model`` and ``training_retinanet``, their heads spread
+by ``spread_retina_head``; ``write_coco_split`` writes a seeded COCO-format
+split (JPEGs, polygon and RLE masks, crowd and degenerate annotations,
+sparse category ids) for the COCO loader and the trainer.
 """
 
 from __future__ import annotations
@@ -206,6 +212,23 @@ def deit_tail_case(gen: torch.Generator, b: int, n: int = 197, c: int = 384,
     return tokens(), tokens(), TailParams(vec.contiguous(), taps)
 
 
+def fit_to_inputs(layer, inputs: torch.Tensor, gain: float,
+                  gen: torch.Generator) -> None:
+    """Redraw ``layer`` (a Linear or a conv) from N(0, gain / (sqrt(fan_in)
+    * rms)), rms that of ``inputs`` [N, fan_in] (its input vectors) less
+    their mean, with a bias that cancels the mean input's share."""
+    mean = inputs.mean(0)
+    rms = (inputs - mean).pow(2).mean().sqrt().item()
+    w = layer.weight
+    with torch.no_grad():
+        w.normal_(0.0, gain / (w[0].numel() ** 0.5 * rms), generator=gen)
+        w2 = w.reshape(w.shape[0], -1)
+        if w2.shape[1] == mean.numel():
+            layer.bias.copy_(-(w2 @ mean))
+        else:  # a 3x3 conv: the centre of a constant map
+            layer.bias.copy_(-(w.sum((2, 3)) @ mean))
+
+
 def spread_detector_weights(model: torch.nn.Module, gen: torch.Generator,
                             px=(256, 384)) -> torch.nn.Module:
     """Redraw a ``FasterRCNN`` / ``MaskRCNN``'s RPN and box-head weights in
@@ -230,17 +253,7 @@ def spread_detector_weights(model: torch.nn.Module, gen: torch.Generator,
     seen = {}
 
     def fit(layer, inputs, gain):
-        """inputs [N, fan_in]: the layer's input vectors."""
-        mean = inputs.mean(0)
-        rms = (inputs - mean).pow(2).mean().sqrt().item()
-        w = layer.weight
-        with torch.no_grad():
-            w.normal_(0.0, gain / (w[0].numel() ** 0.5 * rms), generator=gen)
-            w2 = w.reshape(w.shape[0], -1)
-            if w2.shape[1] == mean.numel():
-                layer.bias.copy_(-(w2 @ mean))
-            else:  # a 3x3 conv: the centre of a constant map
-                layer.bias.copy_(-(w.sum((2, 3)) @ mean))
+        fit_to_inputs(layer, inputs, gain, gen)
 
     def grab(name):
         def hook(_, args):
@@ -452,3 +465,212 @@ def zoo_serving_model(arch: str, seed: int, px=224,
             elif name.endswith("eca.conv.weight"):
                 p.uniform_(-1.0, 1.0, generator=gen)
     return _calibrated(model, gen, spread=("bn3", "bn_dw"), px=px)
+
+
+# RetinaNet: the class logits' offset below the fitted zero mean, so that a
+# few anchors of each image score over the 0.05 threshold (sigmoid(-2.5) is
+# 0.076) and most do not
+RETINA_CLS_OFFSET = -2.5
+
+
+def spread_retina_head(model: torch.nn.Module, gen: torch.Generator,
+                       px=(256, 384)) -> torch.nn.Module:
+    """Redraw a ``RetinaNet``'s head in place, fitted to its inputs as
+    measured on 8 seeded ``px`` images on the CPU (fp32; their contrasts
+    spread 6-fold, so fewer would leave the logits' scale to chance), so
+    that its outputs depend on the image as a trained detector's do.
+
+    At the mmdet init every head conv is N(0, 0.01): each tower conv
+    halves its input's scale, and the class logits sit at the focal prior
+    (every anchor scores 0.0100 +- 1e-4, under the 0.05 threshold: no
+    image keeps a detection).  Here each tower conv keeps its input's
+    scale (He, ``fit_to_inputs``), ``retina_cls`` is drawn for logits of std
+    2 around ``RETINA_CLS_OFFSET`` and ``retina_reg`` for deltas of std 0.2
+    (``fit_to_outputs``)."""
+    head = model.bbox_head
+
+    def rows(maps):
+        return torch.cat([f.reshape(-1, f.shape[-1]) for f in maps])
+
+    def conv(m, maps):
+        return [F.conv2d(f.permute(0, 3, 1, 2), m.weight, m.bias, padding=1)
+                .relu().permute(0, 2, 3, 1) for f in maps]
+
+    x = images(gen, 8, px)
+    with torch.no_grad():
+        feats = list(model.neck(model.backbone(x.to(
+            model.backbone.conv1.weight.dtype))))
+        tails = []
+        for tower in (head.cls_convs, head.reg_convs):
+            t = feats
+            for m in tower:
+                fit_to_inputs(m.conv, rows(t), 2.0 ** 0.5, gen)
+                t = conv(m.conv, t)
+            tails.append(t)
+        for conv, std, offset in ((head.retina_cls, 2.0, RETINA_CLS_OFFSET),
+                                  (head.retina_reg, 0.2, 0.0)):
+            fit_to_outputs(conv, tails[conv is head.retina_reg], std, offset,
+                           gen)
+    return model
+
+
+def fit_to_outputs(conv, maps, std: float, offset: float,
+                   gen: torch.Generator) -> None:
+    """Redraw a 3x3 ``conv`` so that its outputs on the NHWC ``maps`` have
+    exactly the given std about ``offset`` (measured: a 3x3 sum of a
+    smooth map's correlated pixels is wider than independent ones give)."""
+    w = conv.weight
+    with torch.no_grad():
+        w.normal_(0.0, 1.0, generator=gen)
+        y = torch.cat([F.conv2d(f.permute(0, 3, 1, 2), w, padding=1)
+                       .permute(0, 2, 3, 1).reshape(-1, w.shape[0])
+                       for f in maps])
+        mean = y.mean(0)
+        scale = std / (y - mean).pow(2).mean().sqrt()
+        w.mul_(scale)
+        conv.bias.copy_(offset - mean * scale)
+
+
+def retinanet_serving_model(seed: int, num_classes: int = 80
+                            ) -> torch.nn.Module:
+    """``retinanet_r50mrlal_fpn_1x_coco``'s detector on the CPU from
+    ``seed``, in eval mode: :func:`serving_model`'s resnet50_mrlal trunk,
+    the neck from the same seed and the head spread by
+    :func:`spread_retina_head` at half the daemon's 800 x 1344."""
+    from mrla_tpu_torch.detect.retinanet import RetinaNet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = RetinaNet(num_classes=num_classes, generator=gen)
+    trunk = {k: v for k, v in serving_model(seed).state_dict().items()
+             if not k.startswith("fc.")}
+    model.backbone.load_state_dict(trunk, strict=True)
+    return spread_retina_head(model.eval(), gen, px=(400, 672))
+
+
+def training_retinanet(seed: int, layers=(3, 4, 6, 3), num_classes: int = 80,
+                       px=(128, 128)) -> torch.nn.Module:
+    """A ``RetinaNet`` on the CPU from ``seed``, in eval mode, for the
+    training checks: BN scales from U(0.1, 0.5) (bn3 is zero-initialised,
+    which would leave every residual branch idle) and BN statistics from a
+    pass over 16 seeded ``px`` images, so that a step with BN on batch
+    statistics (``--no-norm-eval``) sees features of the scale the head
+    was fitted to; the head spread by :func:`spread_retina_head` on ``px``
+    images."""
+    from mrla_tpu_torch.detect.retinanet import RetinaNet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = RetinaNet(layers=layers, num_classes=num_classes, generator=gen)
+    model.backbone = _calibrated(model.backbone, gen, spread=("",), px=px)
+    return spread_retina_head(model.eval(), gen, px=px)
+
+
+# COCO 2017's 80 category ids (1 to 90 with gaps): the trees below use them
+# in order, so a label is never its category id
+COCO_CATEGORY_IDS = tuple(i for i in range(1, 91) if i not in (
+    12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+
+
+def rle_string(counts) -> str:
+    """Runs -> pycocotools' compressed RLE string (maskApi.c rleToString:
+    6-bit groups, 0x20 continuation, counts past the second as deltas)."""
+    out = []
+    for i, x in enumerate(counts):
+        x = int(x) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not ((x == 0 and not c & 0x10)
+                        or (x == -1 and c & 0x10))
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def mask_runs(mask) -> list:
+    """A [h, w] bool mask -> its column-major runs, zeros first."""
+    import numpy as np
+
+    flat = np.asarray(mask, bool).T.reshape(-1)
+    edges = np.flatnonzero(np.diff(flat.astype(np.int8))) + 1
+    bounds = np.concatenate([[0], edges, [flat.size]])
+    runs = np.diff(bounds).tolist()
+    return ([0] + runs) if flat[0] else runs
+
+
+def write_coco_split(root: str, split: str, n_images: int, sizes,
+                     category_ids, seed: int, extent=(0.1, 0.5)):
+    """A seeded COCO-format split: ``root/<split>/*.jpg`` and
+    ``root/instances_<split>.json``; returns (annotation file, image dir).
+
+    Image i is ``sizes[i % len(sizes)]`` (h, w): a smooth colour field with
+    1 to 4 objects drawn on it, each a box or an ellipse
+    tinted by its class, its sides ``extent`` (lowest, highest) of the
+    image's.  Their segmentations rotate through a polygon, an
+    uncompressed RLE and a compressed RLE string; every third image also
+    holds a crowd region (``iscrowd=1``, RLE) and a degenerate annotation
+    (zero width), which the loader drops from training; the category ids
+    are ``category_ids`` (sparse, as COCO's)."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, split)
+    os.makedirs(img_dir, exist_ok=True)
+    images_, anns = [], []
+    for i in range(n_images):
+        h, w = sizes[i % len(sizes)]
+        coarse = rng.integers(0, 160, (6, 8, 3)).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h),
+                                                        Image.BICUBIC))
+        img = img.copy()
+        yy, xx = np.mgrid[0:h, 0:w]
+        for j in range(int(rng.integers(1, 5))):
+            c = int(rng.integers(0, len(category_ids)))
+            bw = int(rng.integers(int(w * extent[0]), int(w * extent[1])))
+            bh = int(rng.integers(int(h * extent[0]), int(h * extent[1])))
+            x0 = int(rng.integers(0, w - bw))
+            y0 = int(rng.integers(0, h - bh))
+            kind = (i + j) % 3
+            if kind == 0:  # a box, as a polygon
+                mask = ((xx >= x0) & (xx < x0 + bw) & (yy >= y0)
+                        & (yy < y0 + bh))
+                seg = [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0,
+                        y0 + bh]]
+            else:  # an ellipse, as RLE
+                mask = (((xx + 0.5 - x0 - bw / 2) / (bw / 2)) ** 2
+                        + ((yy + 0.5 - y0 - bh / 2) / (bh / 2)) ** 2) <= 1
+                runs = mask_runs(mask)
+                seg = {"size": [h, w], "counts": runs if kind == 1
+                       else rle_string(runs)}
+            tint = np.array([(37 * c) % 256, (91 * c) % 256, (53 * c) % 256])
+            img[mask] = (0.3 * img[mask] + 0.7 * tint).astype(np.uint8)
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": category_ids[c],
+                         "bbox": [float(x0), float(y0), float(bw),
+                                  float(bh)],
+                         "area": float(mask.sum()), "iscrowd": 0,
+                         "segmentation": seg})
+        if i % 3 == 0:
+            crowd = (xx < w // 5) & (yy < h // 5)
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": category_ids[0],
+                         "bbox": [0.0, 0.0, float(w // 5), float(h // 5)],
+                         "area": float(crowd.sum()), "iscrowd": 1,
+                         "segmentation": {"size": [h, w],
+                                          "counts": mask_runs(crowd)}})
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": category_ids[-1],
+                         "bbox": [5.0, 5.0, 0.0, 3.0], "area": 0.0,
+                         "iscrowd": 0, "segmentation": []})
+        name = f"{i:06d}.jpg"
+        Image.fromarray(img).save(os.path.join(img_dir, name), quality=90)
+        images_.append({"id": i, "file_name": name, "height": h, "width": w})
+    ann_file = os.path.join(root, f"instances_{split}.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images_, "annotations": anns,
+                   "categories": [{"id": c, "name": f"c{c}"}
+                                  for c in category_ids]}, f)
+    return ann_file, img_dir

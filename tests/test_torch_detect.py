@@ -164,9 +164,9 @@ def test_rpn_proposals_match():
         outs.append((cls, reg))
     got = two_stage.rpn_proposals([(_t(c), _t(r)) for c, r in outs],
                                   (64, 64), nms_pre=150, max_per_img=80)
-    want = j_two.rpn_proposals([(jnp.asarray(c), jnp.asarray(r))
-                                for c, r in outs], (64, 64), nms_pre=150,
-                               max_per_img=80)
+    want = jax.jit(lambda o: j_two.rpn_proposals(
+        o, (64, 64), nms_pre=150, max_per_img=80))(
+        [(jnp.asarray(c), jnp.asarray(r)) for c, r in outs])
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     _close(got[0], want[0])
     _close(got[1], want[1])
@@ -191,8 +191,10 @@ def test_features_only_matches():
     from mrla_tpu.ckpt import convert_resnet_state_dict
 
     v = convert_resnet_state_dict(model.state_dict())
-    want = JResNet(layers=[1, 1, 1, 1], features_only=True,
-                   use_drop_path=False).apply(v, jnp.asarray(x), train=False)
+    jm = JResNet(layers=[1, 1, 1, 1], features_only=True,
+                 use_drop_path=False)
+    want = jax.jit(lambda vv, xx: jm.apply(vv, xx, train=False))(
+        v, jnp.asarray(x))
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), RTOL, ATOL)
@@ -217,7 +219,7 @@ def test_fpn_matches():
             params[f"{name}{i}"] = {
                 "kernel": m.conv.weight.detach().numpy().transpose(2, 3, 1, 0),
                 "bias": m.conv.bias.detach().numpy()}
-    want = JFPN(out_channels=256, num_outs=5).apply(
+    want = jax.jit(JFPN(out_channels=256, num_outs=5).apply)(
         {"params": params}, [jnp.asarray(a) for a in ins])
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):

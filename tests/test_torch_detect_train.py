@@ -41,6 +41,7 @@ from mrla_tpu_torch.detect import two_stage_train as train
 from mrla_tpu_torch.detect.configs import PRESETS
 from mrla_tpu_torch.detect.targets import max_iou_assign
 from mrla_tpu_torch.testing import training_detector
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 KW = dict(layers=(1, 1, 1, 1), num_classes=3, rpn_nms_pre=100,
           num_proposals=30, roi_sampling_ratio=0)
@@ -100,9 +101,9 @@ def test_max_iou_assign_matches(low_quality):
     valid = np.array([[True] * 5 + [False], [True, True, False] * 2])
     got = max_iou_assign(_t(anchors), _t(gt), _t(valid), 0.5, 0.4, 0.1,
                          match_low_quality=low_quality)
-    want = jax.vmap(lambda g, v: j_targets.max_iou_assign(
+    want = jax.jit(jax.vmap(lambda g, v: j_targets.max_iou_assign(
         jnp.asarray(anchors), g, v, 0.5, 0.4, 0.1,
-        match_low_quality=low_quality))(jnp.asarray(gt), jnp.asarray(valid))
+        match_low_quality=low_quality)))(jnp.asarray(gt), jnp.asarray(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got == 2).any() or (got == 4).any()
 
@@ -115,9 +116,9 @@ def test_random_sample_matches_and_keeps_budgets():
     u = _uniforms(key, 3, 400, 2)
     got_p, got_n = train.random_sample(_t(pos), _t(neg), 256, 0.5, u[:, 0],
                                        u[:, 1])
+    sample = jax.jit(lambda k, p, n: j_train.random_sample(k, p, n, 256, 0.5))
     for i, k in enumerate(jax.random.split(key, 3)):
-        wp, wn = j_train.random_sample(k, jnp.asarray(pos[i]),
-                                       jnp.asarray(neg[i]), 256, 0.5)
+        wp, wn = sample(k, jnp.asarray(pos[i]), jnp.asarray(neg[i]))
         np.testing.assert_array_equal(got_p[i].numpy(), np.asarray(wp))
         np.testing.assert_array_equal(got_n[i].numpy(), np.asarray(wn))
     counts = (got_p.sum(1) + got_n.sum(1)).tolist()
@@ -153,9 +154,10 @@ def test_rpn_loss_matches():
     n = sum(c.shape[1] * c.shape[2] * 3 for c, _ in outs)
     got = train.rpn_loss([(_t(c), _t(r)) for c, r in outs], _t(gt),
                          _t(valid), _uniforms(key, 2, n, 2), num_samples=64)
-    want = j_train.rpn_loss([(jnp.asarray(c), jnp.asarray(r))
-                             for c, r in outs], jnp.asarray(gt),
-                            jnp.asarray(valid), key, num_samples=64)
+    want = jax.jit(lambda o, g, v, k: j_train.rpn_loss(
+        o, g, v, k, num_samples=64))(
+        [(jnp.asarray(c), jnp.asarray(r)) for c, r in outs],
+        jnp.asarray(gt), jnp.asarray(valid), key)
     assert int(got["num_pos"]) == int(want["num_pos"]) > 0
     for k in ("loss_rpn_cls", "loss_rpn_bbox"):
         _close(float(got[k]), float(want[k]), 1e-5)
@@ -174,10 +176,10 @@ def test_rcnn_targets_match(low_quality):
     got = train.rcnn_targets(_t(props), _t(pvalid), _t(gt), _t(labels),
                              _t(valid), 3, u, num=24,
                              match_low_quality=low_quality)
-    want = j_train.rcnn_targets(key, jnp.asarray(props), jnp.asarray(pvalid),
-                                jnp.asarray(gt), jnp.asarray(labels),
-                                jnp.asarray(valid), 3, num=24,
-                                match_low_quality=low_quality)
+    want = jax.jit(lambda *a: j_train.rcnn_targets(
+        *a, 3, num=24, match_low_quality=low_quality))(
+        key, jnp.asarray(props), jnp.asarray(pvalid), jnp.asarray(gt),
+        jnp.asarray(labels), jnp.asarray(valid))
     assert set(got) == set(want)
     for k in ("roi_valid", "labels", "gt_index", "label_weights",
               "bbox_weights"):
@@ -207,7 +209,7 @@ def test_rcnn_and_mask_losses_match():
           for n, v in targets.items()}
     jt = {n: jnp.asarray(v) for n, v in targets.items()}
     got = train.rcnn_loss(_t(cls), _t(reg), tt)
-    want = j_train.rcnn_loss(jnp.asarray(cls), jnp.asarray(reg), jt)
+    want = jax.jit(j_train.rcnn_loss)(jnp.asarray(cls), jnp.asarray(reg), jt)
     for n in ("loss_cls", "loss_bbox"):
         _close(float(got[n]), float(want[n]))
     masks = np.zeros((b, 3, 96, 96), np.float32)
@@ -217,7 +219,8 @@ def test_rcnn_and_mask_losses_match():
             masks[i, g, y0:y0 + 30, x0:x0 + 25] = 1.0
     logits = 3 * rng.standard_normal((b, r, 28, 28, k)).astype(np.float32)
     got = train.mask_loss(_t(logits), tt, _t(masks))
-    want = j_train.mask_loss(jnp.asarray(logits), jt, jnp.asarray(masks))
+    want = jax.jit(j_train.mask_loss)(jnp.asarray(logits), jt,
+                                      jnp.asarray(masks))
     _close(float(got), float(want))
 
 
@@ -319,10 +322,15 @@ def test_training_step_matches_jax(name):
         opt.step()
     jsched, _ = j_cli.make_schedule(jargs, preset, 1)
     tx = j_cli.make_optimizer(jargs, jsched, v["params"])
+
+    @jax.jit  # one program: optax's eager updates compile each leaf's ops
+    def sgd(p, state):
+        updates, state = tx.update(jgrads, state, p)
+        return optax.apply_updates(p, updates), state
+
     jp, state = v["params"], tx.init(v["params"])
     for _ in range(2):
-        updates, state = tx.update(jgrads, state, jp)
-        jp = optax.apply_updates(jp, updates)
+        jp, state = sgd(jp, state)
     jnew = detector_state_dict_from_jax(
         {"params": jp, "batch_stats": v["batch_stats"]})
     frozen = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
@@ -423,7 +431,9 @@ def test_trainer_needs_a_card_unless_asked(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--output-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="not ported"):
-        train_cli.main(["--device", "cpu", "--preset",
-                        "retinanet_r50mrlal_fpn_1x_coco",
-                        "--output-dir", str(tmp_path)])
+    small = ["--device", "cpu", "--backbone-layers", "1", "1", "1", "1",
+             "--output-dir", str(tmp_path)]
+    with pytest.raises(SystemExit, match="requires --train-ann"):
+        train_cli.main(small + ["--data", "coco"])
+    with pytest.raises(FileNotFoundError):
+        train_cli.main(small + ["--torch", str(tmp_path / "absent.pth")])

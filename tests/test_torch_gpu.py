@@ -1405,3 +1405,122 @@ def test_classification_cli_on_an_imagefolder_on_the_card(cuda, tmp_path):
     want = "native" if native.available() else "pil"
     assert res["decoders"] == {"train": [want] * 3, "val": [want] * 2}
     assert res["val_count"] == 5
+
+
+def test_retinanet_forward_and_decode_on_the_card(cuda):
+    """A (1, 1, 1, 1) RetinaNet in fp32 (TF32 off) on the card against the
+    CPU: every level's maps, and get_bboxes on the card of the CPU's maps
+    against get_bboxes on the CPU (the same detections).  No kernel of the
+    port launches on this path."""
+    import copy
+
+    from mrla_tpu_torch.detect.retinanet import get_bboxes
+    from mrla_tpu_torch.kernels import fused_epilogue, roi_align_patch
+    from mrla_tpu_torch.testing import images, training_retinanet
+
+    model = training_retinanet(0, (1, 1, 1, 1), 3, px=(96, 128))
+    x = images(torch.Generator().manual_seed(1), 2, (96, 128))
+    with torch.no_grad():
+        want = model(x)
+        card = copy.deepcopy(model).cuda()
+        roi_align_patch.counter.reset()
+        fused_epilogue.counter.reset()
+        got = card(x.cuda())
+        dets = get_bboxes([(c.cuda(), r.cuda()) for c, r in want], (96, 128))
+    torch.cuda.synchronize()
+    assert roi_align_patch.counter.launches == 0
+    assert fused_epilogue.counter.launches == 0
+    for (gc, gr), (wc, wr) in zip(got, want):
+        for g, w in ((gc, wc), (gr, wr)):
+            assert (g.cpu() - w).norm() <= 1e-4 * w.norm()
+    ref = get_bboxes(want, (96, 128))
+    assert torch.equal(dets[3].cpu(), ref[3]) and ref[3].any()
+    assert torch.equal(dets[2].cpu(), ref[2])
+    assert (dets[0].cpu() - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
+
+
+def test_retinanet_loss_on_the_card(cuda):
+    """retinanet_loss and its gradient to the head outputs on the card
+    against the CPU (fp32 sums in another order)."""
+    from mrla_tpu_torch.detect.losses import retinanet_loss
+
+    gen = torch.Generator().manual_seed(3)
+    sizes = [(12, 16), (6, 8), (3, 4), (2, 2), (1, 1)]
+    outs = [(2 * torch.randn(2, h, w, 27, generator=gen) - 2,
+             0.3 * torch.randn(2, h, w, 36, generator=gen)) for h, w in sizes]
+    xy = torch.rand(2, 5, 2, generator=gen) * torch.tensor([128.0, 96.0])
+    gt = torch.cat([xy, xy + 8 + 50 * torch.rand(2, 5, 2, generator=gen)], -1)
+    labels = torch.randint(0, 3, (2, 5), generator=gen)
+    valid = torch.ones(2, 5, dtype=torch.bool)
+    valid[0, 3:] = False
+    res = []
+    for dev in ("cpu", "cuda"):
+        leaves = [(c.to(dev).requires_grad_(), r.to(dev).requires_grad_())
+                  for c, r in ((c.clone(), r.clone()) for c, r in outs)]
+        out = retinanet_loss(leaves, gt.to(dev), labels.to(dev),
+                             valid.to(dev), 3)
+        out["loss"].backward()
+        res.append((out, [g.grad.cpu() for pair in leaves for g in pair]))
+    (want, wg), (got, gg) = res
+    assert int(got["num_pos"]) == int(want["num_pos"]) > 0
+    for k in ("loss_cls", "loss_bbox"):
+        assert abs(got[k].item() - want[k].item()) <= 1e-5 * want[k].item()
+    for g, w in zip(gg, wg):
+        assert (g - w).norm() <= 1e-5 * w.norm() + 1e-12
+
+
+def test_retinanet_pyramid_routes_through_the_kernels(cuda):
+    """detect_forward with RetinaNet's neck (start_level=1, on_input) at
+    256 x 384: the trunk's tails through the kernels (mega-tail and
+    epilogue launches), P3..P7 against the module's fp32 pyramid."""
+    from mrla_tpu_torch.kernels import (
+        fused_epilogue,
+        mrla_block_tail_fused_next,
+    )
+    from mrla_tpu_torch.serving import detect_forward, prepare_detect_params
+    from mrla_tpu_torch.testing import images, training_retinanet
+
+    model = training_retinanet(0, (1, 1, 1, 1), 3, px=(96, 128))
+    x = images(torch.Generator().manual_seed(2), 2, (256, 384))
+    with torch.no_grad():
+        want = model.neck(model.backbone(x))
+    params = prepare_detect_params(model, (1, 1, 1, 1))
+    fused_epilogue.counter.reset()
+    mrla_block_tail_fused_next.counter.reset()
+    got = detect_forward(params, x.cuda(), (1, 1, 1, 1), start_level=1,
+                         add_extra_convs="on_input")
+    torch.cuda.synchronize()
+    assert (fused_epilogue.counter.launches
+            + mrla_block_tail_fused_next.counter.launches) == 4
+    assert [tuple(p.shape[1:3]) for p in got] == [
+        (32, 48), (16, 24), (8, 12), (4, 6), (2, 3)]
+    for g, w in zip(got, want):
+        assert (g.float().cpu() - w).norm() <= 0.08 * w.norm()
+
+
+def test_detection_trainer_on_coco_on_the_card(cuda, tmp_path):
+    """The trainer on a seeded COCO-format tree on the card: one RetinaNet
+    epoch, then --eval-only --resume over the whole val split (3 images,
+    batch 2: the padded row skipped) with the run's mAP."""
+    import json
+
+    from mrla_tpu_torch.detect import train_cli
+    from mrla_tpu_torch.testing import write_coco_split
+
+    (ta, ti), (va, vi) = (write_coco_split(
+        str(tmp_path), split, n, [(60, 80), (80, 60)], (7, 13, 90), seed)
+        for split, n, seed in (("train", 4, 0), ("val", 3, 1)))
+    argv = ["--device", "cuda", "--preset", "retinanet_r50mrlal_fpn_1x_coco",
+            "--data", "coco", "--train-ann", ta, "--train-imgs", ti,
+            "--val-ann", va, "--val-imgs", vi, "--img-size", "128", "192",
+            "--backbone-layers", "1", "1", "1", "1", "--num-classes", "3",
+            "--batch-size", "2", "--epochs", "1", "--output-dir",
+            str(tmp_path / "run")]
+    res = train_cli.main(argv)
+    line = json.loads(open(tmp_path / "run" / "log.jsonl").readline())
+    assert len(res["loss"]) == 2 and all(math.isfinite(v)
+                                          for v in res["loss"])
+    ev = train_cli.main(argv + ["--eval-only", "--resume",
+                                str(tmp_path / "run")])
+    assert ev["val_count"] == line["val_count"] == 3
+    assert ev["mAP"] == line["mAP"]

@@ -46,9 +46,8 @@ def _perturb(variables, seed):
 
 def _flax_variables(layers, px, seed, num_classes=10):
     model = FlaxResNet(layers=list(layers), num_classes=num_classes)
-    variables = jax.device_get(
-        model.init(jax.random.key(seed), jnp.zeros((1, px, px, 3)),
-                   train=False))
+    variables = jax.device_get(jax.jit(lambda key: model.init(
+        key, jnp.zeros((1, px, px, 3)), train=False))(jax.random.key(seed)))
     return model, _perturb(variables, seed)
 
 
