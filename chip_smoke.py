@@ -222,9 +222,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      the step's own head outputs within BF16_LOSS_TOL, which the logits
      fed to the focal / softmax loss in bf16 must fail; the phase's wall
      time;
+ 8f. data parallelism (parallel/, DDP with BN over the global batch):
+     (a) NCCL at world 1, the launch environment of one rank set in-process
+     (a free localhost port): the ResNet recipe of 8b(b) (2 + 8 steps) and
+     the faster preset's trainer with --dp 1 (800 x 800, batch 8, 2 + 8
+     steps), each in turns with the same run without a process group: ms
+     / step (DDP's cost at world 1), finite losses, the classification
+     run's kernel counts 0, the RoIAlign launches per step by shape phase
+     8's table (rows 8 and 9 under DDP), one log line (rank 0's); (b) two
+     gloo ranks sharing the card (NCCL takes one card a rank), started
+     after the build (parallel/spawn.py), against the same step at world 1
+     on the global batch on the card, fp32: one SGD step of the seeded
+     full-depth resnet50_mrlal (224 px, global batch 16, 8 a rank; the
+     loss and the largest error of any parameter's and running
+     statistic's update within CLS_STEP_TOLS), per-replica BN (the
+     injected fault) failing them, the fused epilogue's step against its
+     world-1 step; one step of the seeded full-depth faster preset (800 x
+     800, global batch 4, 2 a rank, the samplers' uniforms fixed: loss
+     terms and gradients within DP_DET_TOLS), per-rank normalisers (the
+     fault) failing them, 1 RoIAlign forward and 1 backward in each rank;
+     the two ranks' weights bitwise equal after every sound step; the
+     phase's wall time beside DP_WALL_S;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
-     its main path;
+     its main path, and its launches on the other paths (the DDP training
+     run of 8f among them);
  10. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -234,6 +256,7 @@ there is none, or when the mrla_tpu_torch package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -2028,7 +2051,7 @@ REAL_FT_PX, REAL_FT_BATCH, REAL_AUX_BATCH = 384, 32, 16
 REAL_TIMED = (1, 5)  # the steps of ms / step: after the first, before the
 # profiled steps 5-14 (cli.PROFILE_STEPS) of the ResNet run
 REAL_WALL_S = 150.0
-CARD = "cuda"  # the device of phases 8d and 8e (a CPU rehearsal sets it)
+CARD = "cuda"  # the device of phases 8d to 8f (a CPU rehearsal sets it)
 REAL_RECIPES = {
     "resnet": CLS_RECIPES["resnet"] + ["--bf16", "--epochs", "1"],
     "deit": CLS_RECIPES["deit"] + ["--bf16", "--epochs", "1",
@@ -2389,7 +2412,10 @@ def train_path(preset: str, smi: str, extra=()):
             if k != "roi_align":
                 launches[k], per_step[k] = c.launches, {
                     s: n / steps for s, n in c.by_shape.items()}
-        line = json.loads(open(os.path.join(out, "log.jsonl")).readline())
+        lines = open(os.path.join(out, "log.jsonl")).readlines()
+    if len(lines) != 1:  # one epoch, rank 0's line
+        raise AssertionError(f"{preset}: {len(lines)} lines in log.jsonl")
+    line = json.loads(lines[0])
     step_ms = sum(res["step_s"][TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
     data_ms = sum(res["data_s"][TRAIN_WARMUP:]) / TRAIN_TIMED * 1e3
     losses = {k: v for k, v in line.items() if k.startswith("loss")}
@@ -2415,7 +2441,7 @@ def train_path(preset: str, smi: str, extra=()):
         raise AssertionError(f"{desc}: launches per step {per_step}, want "
                              f"{want_fwd} and {want_bwd}")
     del res
-    return launches, per_step
+    return launches, per_step, step_ms
 
 
 def check_learning(smi: str):
@@ -2449,7 +2475,7 @@ def train_detect(smi: str):
     check_roi_align_autograd()
     check_insitu()
     torch.cuda.empty_cache()
-    launches, per_step = train_path(DET_PRESET, smi)
+    launches, per_step, _ = train_path(DET_PRESET, smi)
     train_path(MASK_PRESET, smi)
     train_path(DET_PRESET, smi, ("--bf16",))
     check_learning(smi)
@@ -2584,6 +2610,7 @@ def cls_recipe(name: str, smi: str, extra=()) -> dict:
         res = cli.main(argv)
         torch.cuda.synchronize()
         launches = {k: c.calls for k, c in counters.items()}
+        log_lines = len(open(os.path.join(out, "log.txt")).readlines())
     batch = int(argv[argv.index("-b") + 1])
     step_ms = sum(res["step_s"][CLS_WARMUP:]) / CLS_TIMED * 1e3
     data_ms = sum(res["data_s"][CLS_WARMUP:]) / CLS_TIMED * 1e3
@@ -2600,6 +2627,8 @@ def cls_recipe(name: str, smi: str, extra=()) -> dict:
     if any(launches.values()):
         raise AssertionError(f"{desc}: the port's kernels launched "
                              f"{launches}")
+    if log_lines != 1:  # one epoch, rank 0's line
+        raise AssertionError(f"{desc}: {log_lines} lines in log.txt")
     return {"ms": step_ms, "img_s": batch / step_ms * 1e3, "peak": peak}
 
 
@@ -3787,6 +3816,193 @@ def detection_rest(smi: str) -> None:
           f"{RETINA_WALL_S})")
 
 
+# Phase 8f, data parallelism.  (a) NCCL at world 1: the launch environment
+# of one rank set in-process (a free localhost port), and the trainers' ms
+# a step in turns with the same runs without a process group.  (b) Two gloo
+# ranks sharing the card (parallel/spawn.py; NCCL takes one card a rank):
+# one fp32 step at 2 ranks against the same step at world 1 on the global
+# batch on the card, read as phase 8b's classification step and phase 8's
+# in-situ step are (CLS_STEP_TOLS, DP_DET_TOLS: the loss terms relative,
+# each parameter's gradient relative to its norm, floored at 1e-3 of the
+# whole gradient's), while per-replica BN and per-rank normalisers, the
+# injected faults, must each fail; after each sound step the two ranks'
+# weights bitwise equal.
+DP_PATH = "faster_rcnn_r50mrlal training, DDP"
+DP_CLS_BATCH, DP_DET_BATCH, DP_WORLD = 16, 4, 2
+DP_DET_TOLS = {"loss": 1e-3, "grad": 0.02}
+DP_GRAD_FLOOR = 1e-3
+DP_CLS_FAULT, DP_DET_FAULT = "replica_bn", "replica_norm"
+DP_WALL_S = 120.0  # the phase's target wall time, printed beside it
+
+
+class launch_env:
+    """The launch environment of rank 0 of a world of 1 (a free localhost
+    port), set on entry and taken away on exit."""
+
+    def __enter__(self):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        self.env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                        RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k in self.env:
+            os.environ.pop(k, None)
+
+
+def dp_world1(smi: str) -> dict:
+    """(a): the ResNet recipe of 8b(b) and the faster preset's trainer with
+    --dp 1 (800 x 800, bs8, 2 + 8 steps), each with and without NCCL at
+    world 1, in turns; returns the RoIAlign launches of a DDP run."""
+    from mrla_tpu_torch.parallel import initialized
+
+    ms = {}
+    for ddp in (False, True, True, False):
+        with launch_env() if ddp else contextlib.nullcontext():
+            ms.setdefault(("cls", ddp), []).append(
+                cls_recipe("resnet", smi)["ms"])
+        if initialized():
+            raise AssertionError("the trainer left its process group")
+    launches = None
+    for ddp in (True, False):
+        with launch_env() if ddp else contextlib.nullcontext():
+            got, _, step = train_path(DET_PRESET, smi, ("--dp", "1"))
+        ms.setdefault(("det", ddp), []).append(step)
+        if ddp:
+            launches = got
+    for (kind, ddp), v in ms.items():
+        print(f"data parallelism (a), {kind} trainer "
+              f"{'DDP on NCCL at world 1' if ddp else 'no process group'}: "
+              f"ms/step {[round(t, 2) for t in v]} on {smi}")
+    return launches
+
+
+def _split_state(sd: dict):
+    """(parameters, running statistics) of a classifier's state_dict."""
+    return ({k: v for k, v in sd.items() if "running" not in k
+             and not k.endswith("num_batches_tracked")},
+            {k: v for k, v in sd.items() if "running" in k})
+
+
+def _grad_error(got: dict, ref: dict) -> float:
+    whole = torch.cat([w.flatten() for w in ref.values()]).norm()
+    return max(((got[k] - w).norm() / max(w.norm(), DP_GRAD_FLOOR * whole))
+               .item() for k, w in ref.items())
+
+
+def dp_two_ranks(smi: str) -> None:
+    """(b): two gloo ranks sharing the card against world 1 on the card."""
+    from mrla_tpu_torch.parallel import checks
+    from mrla_tpu_torch.parallel.spawn import start_ranks
+    from mrla_tpu_torch.testing import (
+        detection_batch,
+        images,
+        serving_model,
+        train_uniforms,
+        training_detector,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    model = serving_model(0)
+    cls = {"model": {"layers": list(model.layers), "num_classes": 1000},
+           "state_dict": model.state_dict(),
+           "batch": {"image": images(gen, DP_CLS_BATCH, CLS_PX),
+                     "label": torch.randint(0, 1000, (DP_CLS_BATCH,),
+                                            generator=gen)},
+           "lr": CLS_LR, "momentum": 0.9, "weight_decay": 1e-4,
+           "label_smooth": 0.1}
+    det_model = training_detector(0, num_classes=80, px=(256, 256))
+    side = [-(-TRAIN_PX // 4)]
+    for _ in range(4):
+        side.append(-(-side[-1] // 2))
+    det = {"kind": "faster", "model": {"layers": (3, 4, 6, 3),
+                                       "num_classes": 80},
+           "state_dict": det_model.state_dict(), "lr": 0.01,
+           "batch": detection_batch(2, DP_DET_BATCH, TRAIN_PX, 80,
+                                    TRAIN_MAX_GT, False),
+           "uniforms": train_uniforms(3, DP_DET_BATCH, 3 * sum(
+               h * h for h in side), TRAIN_MAX_GT + det_model.num_proposals)}
+    print(f"data parallelism (b): seeded models in "
+          f"{time.perf_counter() - t0:.1f} s")
+    card = torch.device(CARD)
+    shared = f"{card.type}:0" if card.type == "cuda" else card.type
+    with tempfile.TemporaryDirectory() as w_cls, \
+            tempfile.TemporaryDirectory() as w_det:
+        ranks_cls = start_ranks(checks.variants, DP_WORLD, w_cls, args=(
+            checks.classification_step, cls,
+            ("global", DP_CLS_FAULT, "fused"), shared), timeout=600)
+        ranks_det = start_ranks(checks.variants, DP_WORLD, w_det, args=(
+            checks.detection_step, det, ("global", DP_DET_FAULT), shared),
+            timeout=600)
+        ref = {v: checks.classification_step(cls, v, CARD)
+               for v in ("global", "fused")}
+        ref_det = checks.detection_step(det, "global", CARD)
+        got_cls, got_det = ranks_cls.join(), ranks_det.join()
+    init = _split_state(cls["state_dict"])
+    as_step = lambda r: (r["loss"], *_split_state(r["state"]))
+    readings = {
+        "classification 2 ranks": (as_step(got_cls[0]["global"]),
+                                   as_step(ref["global"])),
+        f"classification {DP_CLS_FAULT} (fault)": (
+            as_step(got_cls[0][DP_CLS_FAULT]), as_step(ref["global"])),
+        "classification fused epilogue 2 ranks": (
+            as_step(got_cls[0]["fused"]), as_step(ref["fused"])),
+    }
+    for name, (got, want) in readings.items():
+        e = cls_step_errors(got, want, init)
+        print(f"data parallelism (b), {name} against world 1 on the card: "
+              + ", ".join(f"{k} {v:.4g} (tol {CLS_STEP_TOLS[k]})"
+                          for k, v in e.items()))
+        within = all(v <= CLS_STEP_TOLS[k] for k, v in e.items())
+        if within == name.endswith("(fault)"):
+            raise AssertionError(f"data parallelism (b), {name}: {e}")
+    terms = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox")
+    for v in ("global", DP_DET_FAULT):
+        got = got_det[0][v]
+        e = {"loss": max(abs(got["terms"][k] - ref_det["terms"][k])
+                         / abs(ref_det["terms"][k]) for k in terms),
+             "grad": _grad_error(got["grads"], ref_det["grads"])}
+        print(f"data parallelism (b), faster {v} 2 ranks against world 1 "
+              f"on the card: " + ", ".join(
+                  f"{k} {x:.4g} (tol {DP_DET_TOLS[k]})" for k, x in e.items())
+              + f"; RoIAlign launches by rank "
+              f"{[r[v]['launches'] for r in got_det]}")
+        within = all(x <= DP_DET_TOLS[k] for k, x in e.items())
+        if within == (v == DP_DET_FAULT):
+            raise AssertionError(f"data parallelism (b), faster {v}: {e}")
+    want = {(DP_DET_BATCH // DP_WORLD, 512, 7, 256): 1,
+            ("bwd", DP_DET_BATCH // DP_WORLD, 512, 7, 256): 1}
+    if any(r["global"]["launches"] != want for r in got_det):
+        raise AssertionError(f"RoIAlign launches by rank "
+                             f"{[r['global']['launches'] for r in got_det]}"
+                             f", want {want} in each")
+    same = {"classification": [got_cls[1][v]["same"]
+                               for v in ("global", "fused")],
+            "faster": [got_det[1][v]["same"]
+                       for v in ("global", DP_DET_FAULT)]}
+    print(f"data parallelism (b): rank 1's weights bitwise rank 0's after "
+          f"each step {same}; {time.perf_counter() - t0:.1f} s")
+    if not all(all(v) for v in same.values()):
+        raise AssertionError(f"the ranks' weights differ: {same}")
+
+
+def data_parallelism(smi: str) -> dict:
+    """Phase 8f; returns the RoIAlign launches of the DDP training run."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = dp_world1(smi)
+    torch.cuda.empty_cache()
+    dp_two_ranks(smi)
+    print(f"data parallelism phase 8f: {time.perf_counter() - t0:.1f} s "
+          f"(target {DP_WALL_S})")
+    return launches
+
+
 def kernels_line(rows, launches, per_forward):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -3897,6 +4113,7 @@ def main() -> int:
         key.update(got)
     train_real_data(smi)
     detection_rest(smi)
+    launches[DP_PATH] = data_parallelism(smi)
     print(json.dumps(kernels_line(rows, launches, per_forward)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,10 @@ sources in ``csrc/``) for every TPU kernel it runs:
     ``data/native``), the samplers (repeated augmentation included),
     RandAugment, the CIFAR and iNat readers, and fine-tuning
     (``utils/finetune.py``).  The JAX training path reaches no TPU kernel,
-    and the port's is plain PyTorch too.
+    and the port's is plain PyTorch too;
+  * data parallelism for both trainers (``parallel/``: torchrun's launch
+    environment, NCCL on cards and gloo on the CPU, DDP, BN over the
+    global batch, the detection trainer's ``--dp``).
 
 The serving entries take the JAX package's ``microbatch`` option (and
 ``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by
@@ -62,6 +65,7 @@ from mrla_tpu_torch import (
     models,
     nn,
     ops,
+    parallel,
     serving,
     train,
     utils,
@@ -84,4 +88,4 @@ def entry(device="cuda"):
 
 
 __all__ = ["ckpt", "data", "detect", "entry", "kernels", "models", "nn",
-           "ops", "resolve_device", "serving", "train"]
+           "ops", "parallel", "resolve_device", "serving", "train"]

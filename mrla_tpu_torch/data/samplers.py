@@ -11,7 +11,7 @@ package's ``data/samplers.py``; the same arguments give the same arrays.
     same way, then cut to floor(n / 256) * 256 / world_size indices a rank
     (truncated to a multiple of 256 before the split across ranks).
 
-The single-card trainer passes rank 0 and a world of 1.
+The trainer passes its rank and world (rank 0 of 1 on one card).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ reference's bbox_head config (retinanet_r50mrlal_fpn.py:37-44):
   * focal: ``w = (α·t + (1−α)(1−t)) · (t(1−p) + (1−t)p)^γ``, ``loss = w ·
     BCE(logit, t)`` elementwise over all C class channels with one-hot
     targets (background anchors: all-zero rows), BCE in its stable form;
-  * both terms divide by ``avg_factor = max(num_pos over the batch, 1)``;
+  * both terms divide by ``avg_factor = max(num_pos over the batch, 1)``,
+    the global batch's under data parallelism (summed over the ranks, with
+    no gradient through it, as the JAX step's under GSPMD);
   * L1 on encoded deltas, positive anchors only.
 
 Logits are taken in fp32 whatever the forward's dtype (``--bf16``).
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from mrla_tpu_torch.detect.anchors import level_anchors
 from mrla_tpu_torch.detect.targets import anchor_targets
+from mrla_tpu_torch.parallel import launch
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -70,7 +73,7 @@ def retinanet_loss(
             anchors, gt_boxes, gt_labels, gt_valid, num_classes,
             pos_iou_thr, neg_iou_thr, min_pos_iou, target_means,
             target_stds)
-    avg_factor = num_pos.sum().float().clamp(min=1.0)
+    avg_factor = launch.global_sum(num_pos.sum().float()).clamp(min=1.0)
     # one-hot over C + 1 columns, the background's dropped: its rows are 0
     onehot = F.one_hot(labels, num_classes + 1)[..., :num_classes].float()
     loss_cls = (sigmoid_focal_loss(cls_logits, onehot, alpha, gamma)

@@ -43,10 +43,27 @@ Usage:
       --val-ann instances_val2017.json --val-imgs val2017 \\
       --batch-size 8 --output-dir runs/det
 
+Data parallelism, ``--dp N``: start N ranks with ``torchrun
+--nproc-per-node N -m mrla_tpu_torch.detect.train_cli --dp N ...`` (the
+launch environment of ``parallel/launch.py``); each trains on
+``cuda:LOCAL_RANK`` (NCCL) or, with ``--device cpu``, on the CPU (gloo), the
+step's loss in DDP.  N must equal the world size, and without a launch
+environment ``--dp`` above 1 raises and names torchrun: the trainer starts
+no processes of its own, and never runs a smaller world than asked.
+``--batch-size`` is the global batch.  A rank takes its contiguous rows of
+each synthetic global batch, or on COCO its stride of the train split cut
+to the same number of batches on every rank (``rank_shard_indices``); the
+samplers draw the global batch's uniforms and keep the rank's rows; the
+losses' normalisers are the global batch's, and the rank's loss is scaled
+by the world size, so that DDP's mean of the gradients is the gradient of
+the global loss; the logged loss terms are the global batch's.  Every rank
+evaluates the whole validation set and rank 0 writes the log and the
+checkpoints, which hold the unwrapped detector.
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
-raises.  Not ported yet: ``--dp`` (multi-card) and ``--roi-backend`` (the
-JAX package's TPU routing: here RoIAlign is the CUDA kernel on the card
-and its plain version on the CPU).
+raises.  Not ported: ``--roi-backend`` (the JAX package's TPU routing:
+here RoIAlign is the CUDA kernel on the card and its plain version on the
+CPU).
 """
 
 from __future__ import annotations
@@ -59,15 +76,26 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from mrla_tpu_torch._device import resolve_device
 from mrla_tpu_torch.detect.configs import PRESETS
+from mrla_tpu_torch.parallel import (
+    data_parallel,
+    global_sum,
+    init_distributed,
+    initialized,
+    is_main_process,
+    rank_device,
+    shard_batch,
+    world_size,
+)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="mrla_tpu_torch detection "
                                             "trainer")
-    p.add_argument("--preset", default="faster_rcnn_r50mrlal_fpn_1x_coco",
+    p.add_argument("--preset", default="retinanet_r50mrlal_fpn_1x_coco",
                    choices=sorted(PRESETS))
     p.add_argument("--data", default="synthetic-detect",
                    choices=["synthetic-detect", "coco"])
@@ -113,6 +141,9 @@ def parse_args(argv=None):
                    help="bf16 compute under torch.autocast (fp32 params)")
     p.add_argument("--remat", action="store_true",
                    help="recompute backbone blocks in the backward")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel over N ranks (torchrun's, one card "
+                        "each; the batch divides by N)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output-dir", default="runs/detect")
     p.add_argument("--resume", default=None,
@@ -219,27 +250,53 @@ def steps_per_epoch(args) -> int:
     return args.steps_per_epoch
 
 
-def data_iter(args, train: bool, epoch: int):
-    """The numpy batches of one epoch, or of one evaluation (COCO's with
-    the eval extras)."""
+def rank_shard_indices(n: int, rank: int, world: int, local_bs: int):
+    """A rank's strided shard of ``n`` items (the reference's
+    DistributedSampler split), cut so that every rank runs the same number
+    of batches: to the global minimum shard length (n // world; strided
+    shards differ by one in length, and a rank cut to its own would run a
+    batch more and deadlock its first collective), rounded down to whole
+    local batches.  None when not one local batch fits."""
+    keep = ((n // world) // local_bs) * local_bs
+    if keep == 0:
+        return None
+    return np.arange(rank, n, world)[:keep]
+
+
+def data_iter(args, train: bool, epoch: int, rank: int = 0, world: int = 1):
+    """The numpy batches of one epoch (this rank's rows of the global
+    batch, ``batch_size / world`` of them), or of one evaluation (called
+    with world 1: every rank runs the whole of it; COCO's with the eval
+    extras)."""
     canvas = canvas_hw(args)
     with_masks = PRESETS[args.preset].with_mask
+    local_bs = args.batch_size // world
     if args.data == "synthetic-detect":
         from mrla_tpu_torch.data.synthetic import synthetic_detection_batches
 
-        return synthetic_detection_batches(
+        it = synthetic_detection_batches(
             args.batch_size, image_size=canvas[0],
             num_classes=args.num_classes,
             steps=args.steps_per_epoch if train else args.eval_steps,
             max_gt=args.max_gt,
             seed=args.seed + epoch * 1000 + (0 if train else 777),
             with_masks=with_masks)
+        # the same global batch on every rank: the rank's contiguous rows
+        return it if world == 1 else (shard_batch(b, rank, world)
+                                      for b in it)
     from mrla_tpu_torch.data.coco import coco_batches
 
-    return coco_batches(coco_split(args, train), args.batch_size,
-                        canvas_hw=canvas, max_gt=args.max_gt, shuffle=train,
-                        augment=train, seed=args.seed + epoch,
-                        with_masks=with_masks, with_eval_extras=not train)
+    ds = coco_split(args, train)
+    indices = None
+    if world > 1:
+        indices = rank_shard_indices(len(ds), rank, world, local_bs)
+        if indices is None:
+            raise SystemExit(f"dataset too small: {len(ds)} images over "
+                             f"{world} ranks < local batch {local_bs}")
+    return coco_batches(ds, local_bs, canvas_hw=canvas, max_gt=args.max_gt,
+                        shuffle=train, augment=train, seed=args.seed + epoch,
+                        indices=indices, with_masks=with_masks,
+                        with_eval_extras=not train)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -247,30 +304,55 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             if k != "sample_valid"}
 
 
-def train_step(model, opt, batch, rand, args) -> Dict[str, torch.Tensor]:
-    """One SGD step on ``batch`` (device tensors); returns the loss terms."""
-    with torch.autocast(batch["image"].device.type, dtype=torch.bfloat16,
-                        enabled=args.bf16):
-        if model_kind(args.preset) == "retinanet":
+class StepLoss(nn.Module):
+    """The preset's training loss of a batch as one module's forward, so
+    that DDP wraps the whole step: (total, the loss terms)."""
+
+    def __init__(self, model: nn.Module, preset: str, num_classes: int,
+                 rcnn_samples: int):
+        super().__init__()
+        self.model = model
+        self.kind = model_kind(preset)
+        self.num_classes, self.rcnn_samples = num_classes, rcnn_samples
+
+    def forward(self, batch, rand):
+        if self.kind == "retinanet":
             from mrla_tpu_torch.detect.losses import retinanet_loss
 
-            losses = retinanet_loss(model(batch["image"]), batch["gt_boxes"],
-                                    batch["gt_labels"], batch["gt_valid"],
-                                    num_classes=args.num_classes)
-            total = losses["loss"]
-        else:
-            from mrla_tpu_torch.detect.two_stage_train import (
-                faster_rcnn_train_loss,
-            )
+            losses = retinanet_loss(
+                self.model(batch["image"]), batch["gt_boxes"],
+                batch["gt_labels"], batch["gt_valid"],
+                num_classes=self.num_classes)
+            return losses["loss"], losses
+        from mrla_tpu_torch.detect.two_stage_train import (
+            faster_rcnn_train_loss,
+        )
 
-            total, losses, _ = faster_rcnn_train_loss(
-                model, batch["image"], batch["gt_boxes"],
-                batch["gt_labels"], batch["gt_valid"], rand,
-                gt_masks=batch.get("gt_masks"), rcnn_num=args.rcnn_samples)
+        total, losses, _ = faster_rcnn_train_loss(
+            self.model, batch["image"], batch["gt_boxes"],
+            batch["gt_labels"], batch["gt_valid"], rand,
+            gt_masks=batch.get("gt_masks"), rcnn_num=self.rcnn_samples)
+        return total, losses
+
+
+def train_step(step_loss: nn.Module, opt, batch, rand,
+               bf16: bool = False) -> Dict[str, torch.Tensor]:
+    """One SGD step on ``batch`` (device tensors) through ``step_loss`` (a
+    :class:`StepLoss`, or DDP around one); returns the global batch's loss
+    terms.  A rank's loss is its rows' share of the global loss (the
+    normalisers are global), so the backward scales it by the world size:
+    DDP then averages the ranks' gradients into the global loss's."""
+    with torch.autocast(batch["image"].device.type, dtype=torch.bfloat16,
+                        enabled=bf16):
+        total, losses = step_loss(batch, rand)
     opt.zero_grad(set_to_none=True)
-    total.backward()
+    world = world_size()
+    (total * world if world > 1 else total).backward()
     opt.step()
-    return {k: v.detach() for k, v in losses.items()}
+    keys = sorted(losses)
+    summed = global_sum(torch.stack([losses[k].detach().float()
+                                     for k in keys]))
+    return dict(zip(keys, summed.unbind()))
 
 
 def load_weights(args, model) -> None:
@@ -296,13 +378,40 @@ def load_weights(args, model) -> None:
 
 def main(argv=None) -> Dict[str, Any]:
     """Train (or with ``--eval-only`` evaluate); returns the model, the best
-    mAP, the last step's losses, and of each step its total loss and host
-    seconds (data, then the step up to its loss on the host)."""
+    mAP, the last step's losses, the last evaluation's image count, and of
+    each step its total loss and host seconds (data, then the step up to
+    its loss on the host).  A process group that this call joins from the
+    launch environment is left again on return."""
+    args = parse_args(argv)
+    resolve_device(args.device)  # no card: raise before joining a group
+    joined = not initialized()
+    info = init_distributed(device=args.device)
+    try:
+        return _main(args, info)
+    finally:
+        if joined and initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, info) -> Dict[str, Any]:
     from mrla_tpu_torch.ckpt.io import restore_checkpoint, save_checkpoint
     from mrla_tpu_torch.train.state import TrainState
 
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+    rank, world = info["process_index"], info["process_count"]
+    if initialized():
+        if args.dp != world:
+            raise SystemExit(f"--dp {args.dp} does not match the launch's "
+                             f"world of {world} ranks: pass --dp {world}")
+    elif args.dp > 1:
+        raise SystemExit(
+            f"--dp {args.dp} needs {args.dp} ranks, one card each: start "
+            f"the trainer with torchrun --nproc-per-node {args.dp} -m "
+            "mrla_tpu_torch.detect.train_cli --dp ...")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not divide "
+                         f"over --dp {world}")
+    device = rank_device(args.device)
+    main_rank = is_main_process()
     preset = PRESETS[args.preset]
     model = build_model(args, device)
     load_weights(args, model)
@@ -310,6 +419,9 @@ def main(argv=None) -> Dict[str, Any]:
     schedule, epochs = make_schedule(args, preset, spe)
     opt = make_optimizer(args, model, schedule)
     state = TrainState(model, opt, schedule)
+    loss_module = data_parallel(StepLoss(model, args.preset,
+                                         args.num_classes,
+                                         args.rcnn_samples), device)
 
     os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, "log.jsonl")
@@ -323,11 +435,13 @@ def main(argv=None) -> Dict[str, Any]:
 
     if args.eval_only:
         m = evaluate(args, model, start_epoch, device)
-        print(json.dumps({"eval_only": True, **m}), flush=True)
+        if main_rank:
+            print(json.dumps({"eval_only": True, **m}), flush=True)
         return {"model": model, "best_map": m["mAP"], **m}
 
     global_step = start_epoch * spe
     losses: Dict[str, torch.Tensor] = {}
+    line: Dict[str, Any] = {}
     data_s, step_s, step_loss = [], [], []
     for epoch in range(start_epoch, epochs):
         # the samplers' draws restart each epoch, so a resumed run draws
@@ -335,12 +449,13 @@ def main(argv=None) -> Dict[str, Any]:
         rand = torch.Generator(device=device).manual_seed(
             args.seed + 1 + epoch)
         t0 = t1 = time.perf_counter()
-        for batch in data_iter(args, train=True, epoch=epoch):
+        for batch in data_iter(args, train=True, epoch=epoch, rank=rank,
+                               world=world):
             batch = to_device(batch, device)
             t2 = time.perf_counter()
             for group in opt.param_groups:
                 group["lr"] = schedule(global_step)
-            losses = train_step(model, opt, batch, rand, args)
+            losses = train_step(loss_module, opt, batch, rand, args.bf16)
             global_step += 1
             loss = float(losses["loss"])  # waits for the step
             data_s.append(t2 - t1)
@@ -361,14 +476,16 @@ def main(argv=None) -> Dict[str, Any]:
             is_best = m["mAP"] > best_map
             best_map = max(best_map, m["mAP"])
         state.step = global_step
-        save_checkpoint(args.output_dir, state, epoch, best_map,
-                        is_best=is_best)
-        with open(log_path, "a") as f:
-            f.write(json.dumps(line) + "\n")
-        print(json.dumps(line), flush=True)
+        if main_rank:
+            save_checkpoint(args.output_dir, state, epoch, best_map,
+                            is_best=is_best)
+            with open(log_path, "a") as f:
+                f.write(json.dumps(line) + "\n")
+            print(json.dumps(line), flush=True)
     return {"model": model, "best_map": best_map,
             "last_losses": {k: float(v) for k, v in losses.items()},
-            "loss": step_loss, "data_s": data_s, "step_s": step_s}
+            "loss": step_loss, "data_s": data_s, "step_s": step_s,
+            "val_count": line.get("val_count")}
 
 
 @torch.inference_mode()

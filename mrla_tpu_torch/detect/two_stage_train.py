@@ -21,11 +21,18 @@ Fixed shapes, as in the JAX package: a sampler gives every candidate a
 random priority, sorts the candidates positives first and takes a static
 ``num`` prefix; rows past the sampled count weigh zero.
 
+Under data parallelism the batch-level normalisers (the RPN's and the
+R-CNN's sampled counts, the mask loss's positives) are the global batch's:
+summed over the ranks, with no gradient through them, as the JAX step's
+under GSPMD.
+
 Random draws: every sampler takes its uniforms as tensors.  The JAX
 functions draw them from keys; here :func:`faster_rcnn_train_loss` takes
 either a ``torch.Generator`` (and draws them) or the uniforms themselves
 (``{"rpn": [B, 2, N], "rcnn": [B, 3, G + R]}``), so that a test can hand
-both packages the same numbers.  Sorts are stable, as ``jnp.argsort`` is.
+both packages the same numbers.  A generator draws the global batch's
+uniforms and a rank keeps its rows, so N ranks sample what one process
+samples on the global batch.  Sorts are stable, as ``jnp.argsort`` is.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from mrla_tpu_torch.detect.two_stage import (
     run_stage,
 )
 from mrla_tpu_torch.kernels.roialign_patch import roi_align_patch
+from mrla_tpu_torch.parallel import launch
 
 Uniforms = Union[torch.Generator, Mapping[str, torch.Tensor]]
 
@@ -117,7 +125,7 @@ def rpn_loss(
         bbox2delta(anchors.expand(b, -1, -1), gather_rows(gt_boxes, gt_idx)),
         0.0)
     samp_w = (pos_s | neg_s).float()
-    avg = samp_w.sum().clamp(min=1.0)
+    avg = launch.global_sum(samp_w.sum()).clamp(min=1.0)
     ce = (cls_logits.clamp(min=0) - cls_logits * target
           + torch.log1p(torch.exp(-cls_logits.abs())))
     loss_cls = (ce * samp_w).sum() / avg
@@ -192,7 +200,7 @@ def rcnn_loss(cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
     num_classes = cls_logits.shape[-1] - 1
     labels = targets["labels"]
     lw = targets["label_weights"]
-    avg = lw.sum().clamp(min=1.0)
+    avg = launch.global_sum(lw.sum()).clamp(min=1.0)
     logp = F.log_softmax(cls_logits.float(), -1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss_cls = (nll * lw).sum() / avg
@@ -242,12 +250,15 @@ def mask_loss(mask_logits: torch.Tensor, targets: Mapping[str, torch.Tensor],
     ce = (own.clamp(min=0) - own * mt
           + torch.log1p(torch.exp(-own.abs()))).mean(dim=(-1, -2))
     w = targets["bbox_weights"]  # positives only
-    return (ce * w).sum() / w.sum().clamp(min=1.0)
+    return (ce * w).sum() / launch.global_sum(w.sum()).clamp(min=1.0)
 
 
 def _uniforms(rand: Uniforms, key: str, shape, device) -> torch.Tensor:
     if isinstance(rand, torch.Generator):
-        return torch.rand(shape, generator=rand, device=device)
+        b, world = shape[0], launch.world_size()
+        u = torch.rand((b * world, *shape[1:]), generator=rand,
+                       device=device)
+        return u[launch.rank() * b:(launch.rank() + 1) * b]
     u = rand[key]
     if tuple(u.shape) != tuple(shape):
         raise ValueError(f"uniforms[{key!r}] must be {tuple(shape)}, got "

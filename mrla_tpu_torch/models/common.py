@@ -16,7 +16,12 @@ In training, ``BatchNorm2d`` normalises with the batch statistics as
 ``nn.BatchNorm2d`` does, but updates the running variance with the
 *biased* batch variance, as Flax's ``nn.BatchNorm`` (and so the JAX
 package) does: ``running = 0.9·running + 0.1·batch``.  ``nn.BatchNorm2d``
-would take the unbiased one, n / (n - 1) times larger.
+would take the unbiased one, n / (n - 1) times larger.  Under data
+parallelism (a process group of more than one rank) the batch is the
+global batch, as the JAX step's under GSPMD: the per-channel fp32 sum, sum
+of squares and count are all-reduced by a differentiable sum, so the
+backward's two sums are global too.  (``nn.SyncBatchNorm`` refuses CPU
+tensors and updates the running variance with the unbiased variance.)
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mrla_tpu_torch.parallel import launch
 
 BN_EPS = 1e-5
 
@@ -58,7 +65,8 @@ def conv1x1(in_ch: int, out_ch: int, stride: int = 1,
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step updates the running variance
-    with the biased batch variance (the JAX package's rule); eval mode, the
+    with the biased batch variance (the JAX package's rule) and, under data
+    parallelism, takes its moments over the global batch; eval mode, the
     parameters and buffers are ``nn.BatchNorm2d``'s.  With ``momentum=None``
     (a cumulative average, which the JAX package has no counterpart of) it
     is ``nn.BatchNorm2d`` as it is.  ``update_stats = False`` leaves the
@@ -71,6 +79,29 @@ class BatchNorm2d(nn.BatchNorm2d):
                 and self.momentum is not None):
             return super().forward(x)
         self._check_input_dim(x)
+        if launch.world_size() > 1:
+            return self._global_batch_norm(x)
+        return self._replica_batch_norm(x)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Moments of the global batch: E[x] and E[x²] - E[x]² from the
+        all-reduced sums (Flax's formula), in fp32."""
+        xf = x.float()
+        n = torch.full((1,), float(x.numel() // x.shape[1]),
+                       device=x.device)
+        sums = launch.all_reduce_sum(torch.cat(
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]))
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias.float()[:, None, None]
+        if self.update_stats:
+            self.update_running_stats(mean.detach(), var.detach())
+        return y.to(x.dtype)
+
+    def _replica_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         m = self.momentum
         # the kernel updates copies (which autograd may keep): it adds
         # m·unbiased = var - (1 - m)·running_var; take away its 1 / n share

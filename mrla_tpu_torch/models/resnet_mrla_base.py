@@ -8,7 +8,13 @@ is the 3-conv deep stem (stem_width 32).  The ``resnet50_mrlab22`` ablation
 has the 7x7 stem and no ReLU on attn (``deep_stem=False,
 relu_on_attn=False``).  ``se=True`` puts the SE gate, and ``eca`` (taps a
 stage) the ECA gate, after bn3 and before the residual, as in the
-baseline ResNet (``models/resnet.py``).
+baseline ResNet (``models/resnet.py``); ``groups`` and
+``width_per_group`` widen the 3x3 as ResNeXt's.
+
+Training (``model.train()``): BN on batch statistics (the JAX package's
+running-variance rule, ``models/common.py``), DropPath at ``drop_path`` on
+the attention branch of every block and dropout at ``drop_rate`` before
+``fc``, their masks from the generator ``nn.set_generator`` hands them.
 
 The module tree and ``state_dict`` keys follow the reference (``conv1.{0,1,
 3,4,6}`` and ``bn1`` for the deep stem, ``layer{s}.{b}.conv{i}``,
@@ -40,7 +46,13 @@ from mrla_tpu_torch.models.common import (
     stem7x7,
 )
 from mrla_tpu_torch.models.registry import register_model
-from mrla_tpu_torch.nn.layers import ECALayer, MRLABaseModule, SELayer
+from mrla_tpu_torch.nn.layers import (
+    DropPath,
+    Dropout,
+    ECALayer,
+    MRLABaseModule,
+    SELayer,
+)
 
 
 class MRLABaseBottleneck(nn.Module):
@@ -52,16 +64,18 @@ class MRLABaseBottleneck(nn.Module):
                  use_downsample: bool = False, dim_perhead: int = 16,
                  channel_wise: bool = False, relu_on_attn: bool = True,
                  zero_init_last_bn: bool = True, se: bool = False,
-                 eca_size: Optional[int] = None,
+                 eca_size: Optional[int] = None, groups: int = 1,
+                 base_width: int = 64, drop_path: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out_ch = planes * self.expansion
+        width = int(planes * (base_width / 64.0)) * groups
         self.relu_on_attn = relu_on_attn
-        self.conv1 = conv1x1(inplanes, planes, generator=generator)
-        self.bn1 = batch_norm(planes)
-        self.conv2 = conv3x3(planes, planes, stride, generator=generator)
-        self.bn2 = batch_norm(planes)
-        self.conv3 = conv1x1(planes, out_ch, generator=generator)
+        self.conv1 = conv1x1(inplanes, width, generator=generator)
+        self.bn1 = batch_norm(width)
+        self.conv2 = conv3x3(width, width, stride, generator, groups)
+        self.bn2 = batch_norm(width)
+        self.conv3 = conv1x1(width, out_ch, generator=generator)
         self.bn3 = batch_norm(out_ch, zero_init=zero_init_last_bn)
         self.se = SELayer(out_ch, generator=generator) if se else None
         self.eca = (ECALayer(out_ch, eca_size, generator)
@@ -73,6 +87,7 @@ class MRLABaseBottleneck(nn.Module):
         self.mrla = MRLABaseModule(out_ch, dim_perhead, channel_wise,
                                    generator=generator)
         self.bn_mrla = batch_norm(out_ch)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, cache, max_t: Optional[int] = None):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -88,7 +103,7 @@ class MRLABaseBottleneck(nn.Module):
         attn = self.bn_mrla(attn)
         if self.relu_on_attn:
             attn = F.relu(attn)
-        return out + attn, cache
+        return out + self.drop_path(attn), cache
 
 
 class ResNetMRLABase(nn.Module):
@@ -97,11 +112,14 @@ class ResNetMRLABase(nn.Module):
     def __init__(self, layers: Sequence[int], num_classes: int = 1000,
                  dim_perhead: int = 16, channel_wise: bool = False,
                  deep_stem: bool = True, relu_on_attn: bool = True,
-                 se: bool = False, eca=None,
+                 se: bool = False, eca=None, groups: int = 1,
+                 width_per_group: int = 64, drop_rate: float = 0.0,
+                 drop_path: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  features_only: bool = False):
         super().__init__()
         self.layers = tuple(layers)
+        self.drop_rate, self.drop_path = drop_rate, drop_path
         eca = tuple(eca) if eca else (None,) * len(self.layers)
         self.features_only = features_only
         self.conv1, self.bn1 = (
@@ -117,12 +135,15 @@ class ResNetMRLABase(nn.Module):
                     stride=2 if (first and stage_idx > 0) else 1,
                     use_downsample=first, dim_perhead=dim_perhead,
                     channel_wise=channel_wise, relu_on_attn=relu_on_attn,
-                    se=se, eca_size=eca[stage_idx], generator=generator,
+                    se=se, eca_size=eca[stage_idx], groups=groups,
+                    base_width=width_per_group, drop_path=drop_path,
+                    generator=generator,
                 ))
                 inplanes = planes * MRLABaseBottleneck.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.ModuleList(stage))
             planes *= 2
         if not features_only:
+            self.head_drop = Dropout(drop_rate)
             self.fc = classifier_fc(inplanes, num_classes, generator)
 
     def forward(self, x: torch.Tensor):
@@ -141,7 +162,7 @@ class ResNetMRLABase(nn.Module):
             outs.append(x.permute(0, 2, 3, 1))
         if self.features_only:
             return tuple(outs)
-        return self.fc(x.mean(dim=(2, 3))).float()
+        return self.fc(self.head_drop(x.mean(dim=(2, 3)))).float()
 
 
 @register_model

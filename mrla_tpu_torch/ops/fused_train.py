@@ -17,6 +17,13 @@ The backward is the JAX op's VJP.  It saves only ``out``, ``identity``,
 autograd call; the depthwise conv's through autograd's own conv backward
 (``aten.convolution_backward``), without running the conv's forward again.
 
+Under data parallelism (a process group of more than one rank) the
+moments are the global batch's, as the module path's BN takes them
+(``models/common.py:BatchNorm2d``): the forward all-reduces the per-channel
+sum, sum of squares and count, and the backward the per-channel
+reductions that its input gradient reads (dβ, dγ, and the cotangents of
+the returned moments); dβ and dγ go back to DDP as this rank's own.
+
 Plain PyTorch, as the JAX op is plain jax.numpy: the JAX package measured
 no gain from it on its TPU and ships it off by default
 (``ResNetMRLALight(fused_epilogue=True)``), and so does the port.
@@ -35,6 +42,7 @@ from mrla_tpu_torch.ops.common import (
     global_avg_pool,
 )
 from mrla_tpu_torch.ops.mrla import MRLAParams, mrla_light_attention
+from mrla_tpu_torch.parallel import launch
 
 BN_EPS = 1e-5
 _SUM = (0, 1, 2)
@@ -62,6 +70,23 @@ def _stats(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def _global_stats(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                            float]:
+    """(mean, biased var, count) of the global batch; the batch's own
+    (two-pass) at world 1."""
+    n = float(m.numel() // m.shape[-1])
+    if launch.world_size() == 1:
+        return (*_stats(m), n)
+    mf = m.float()
+    c = m.shape[-1]
+    sums = launch.global_sum(torch.cat([
+        mf.sum(_SUM), (mf * mf).sum(_SUM),
+        torch.full((1,), n, device=m.device)]))
+    mean = sums[:c] / sums[-1]
+    var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
+    return mean, var, float(sums[-1])
+
+
 class _FusedLightEpilogueTrain(torch.autograd.Function):
 
     @staticmethod
@@ -72,9 +97,9 @@ class _FusedLightEpilogueTrain(torch.autograd.Function):
         v = depthwise_conv3x3(out, wv)
         m = v * gate.to(v.dtype)[:, None, None, :] \
             + lam.to(identity.dtype) * identity
-        mean, var = _stats(m)
+        mean, var, n = _global_stats(m)
         ret = out + _bn_affine(m, mean, var, scale, bias)
-        ctx.heads = heads
+        ctx.heads, ctx.n = heads, n
         # a model's step reads mean and var for the running statistics
         # only: their cotangents are None then, and their terms are skipped
         ctx.set_materialize_grads(False)
@@ -86,9 +111,8 @@ class _FusedLightEpilogueTrain(torch.autograd.Function):
     def backward(ctx, dret, dmean, dvar):
         (out, identity, v, y, gate, mean, var, wq, wk, wv, lam,
          scale) = ctx.saved_tensors
-        heads = ctx.heads
+        heads, n = ctx.heads, ctx.n
         b, h, w, c = out.shape
-        n = b * h * w
 
         g32 = dret.float()
         rstd = torch.rsqrt(var + BN_EPS)
@@ -100,12 +124,18 @@ class _FusedLightEpilogueTrain(torch.autograd.Function):
 
         dbeta = g32.sum(_SUM)
         dgamma = (g32 * xhat).sum(_SUM)
-        dm = (scale.float() * rstd) * (g32 - dbeta / n - xhat * (dgamma / n))
-        # the (mean, var) outputs are functions of m too (biased variance)
+        # the sums over the global batch that m's gradient reads; the
+        # (mean, var) outputs are functions of the whole batch's m too
+        sums = [dbeta, dgamma] + [d.float() for d in (dmean, dvar)
+                                  if d is not None]
+        sums = launch.global_sum(torch.cat(sums)).split(c)
+        dm = (scale.float() * rstd) * (
+            g32 - sums[0] / n - xhat * (sums[1] / n))
+        rest = iter(sums[2:])
         if dmean is not None:
-            dm = dm + dmean / n
+            dm = dm + next(rest) / n
         if dvar is not None:
-            dm = dm + (2.0 / n) * dvar * centred
+            dm = dm + (2.0 / n) * next(rest) * centred
 
         dgate = (dm * v.float()).sum((1, 2))  # [B, C]
         dlam = (dm * identity.float()).sum(_SUM)

@@ -8,6 +8,7 @@
     python3 -m mrla_tpu_torch.profile_serving --arch efficientnet_mrlal_b0
     python3 -m mrla_tpu_torch.profile_serving --preset faster_rcnn_r50mrlal_fpn_1x_coco
     python3 -m mrla_tpu_torch.profile_serving --train [--fused-epilogue]
+    torchrun --nproc-per-node 1 -m mrla_tpu_torch.profile_serving --train --ddp
     python3 -m mrla_tpu_torch.profile_serving --train --arch deit_mrlal_tiny_patch16_224
 
 Serves ``--arch`` (default resnet50_mrlal through the BN-folded engine;
@@ -59,6 +60,8 @@ bf16, AdamW, Mixup / CutMix soft targets, drop path 0.1, EMA), from the
 trainer's seeded model and synthetic batches; ``FORWARDS`` traced steps
 after two, by kernel group, and then the forward with its loss, the
 backward (retaining the graph), the optimizer step and the EMA alone.
+``--ddp`` runs those steps through DDP, as the trainer does under a launch
+(start it with torchrun: at one rank, DDP's cost at world 1).
 Needs a CUDA card.
 """
 
@@ -326,16 +329,18 @@ def train_profile(preset: str) -> int:
         targs, train_cli.PRESETS[preset], targs.steps_per_epoch)
     opt = train_cli.make_optimizer(targs, model, schedule)
     rand = torch.Generator(dev).manual_seed(1)
+    step_loss = train_cli.StepLoss(model, preset, targs.num_classes,
+                                   targs.rcnn_samples)
     batches = [train_cli.to_device(b, dev)
                for b in train_cli.data_iter(targs, True, 0)]
     for b in batches[:2]:
-        train_cli.train_step(model, opt, b, rand, targs)
+        train_cli.train_step(step_loss, opt, b, rand)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
         for b in batches[2:]:
-            train_cli.train_step(model, opt, b, rand, targs)
+            train_cli.train_step(step_loss, opt, b, rand)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = device_ms(prof)
@@ -409,7 +414,7 @@ TRAIN_CLS_GROUPS = (
 )
 
 
-def classify_profile(arch: str, fused: bool) -> int:
+def classify_profile(arch: str, fused: bool, ddp: bool = False) -> int:
     """Device time of classification training steps on the trainer's
     recipe for ``arch`` (see the module's docstring)."""
     import numpy as np
@@ -442,6 +447,13 @@ def classify_profile(arch: str, fused: bool) -> int:
     model = cli.build_model(args, dev)
     opt, schedule = cli.build_optimizer(args, model, args.synthetic_steps)
     state = create_train_state(model, opt, schedule, args.ema_decay)
+    if ddp:
+        from mrla_tpu_torch.parallel import data_parallel, init_distributed
+
+        if init_distributed(device=dev)["process_count"] != 1:
+            raise SystemExit("--ddp profiles one rank: torchrun "
+                             "--nproc-per-node 1")
+        state.ddp = data_parallel(model, dev)
     set_generator(model, torch.Generator(dev).manual_seed(1))
     batches = []
     for i, b in enumerate(synthetic_batches(args.batch_size, 224, 1000,
@@ -475,7 +487,8 @@ def classify_profile(arch: str, fused: bool) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"window: {arch} training{' --fused-epilogue' if fused else ''}, "
+    print(f"window: {arch} training{' --fused-epilogue' if fused else ''}"
+          f"{' under DDP at world 1' if state.ddp is not None else ''}, "
           f"{FORWARDS} steps, bs{args.batch_size}, 224 px, bf16, wall "
           f"{wall_ms:.3f} ms ({wall_ms / FORWARDS:.3f} ms/step), device busy "
           f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
@@ -532,13 +545,21 @@ def main() -> int:
                              "classification on --arch's recipe")
     parser.add_argument("--fused-epilogue", action="store_true",
                         help="with --train: resnet50_mrlal's fused tails")
+    parser.add_argument("--ddp", action="store_true",
+                        help="with --train and no preset: the steps through "
+                             "DDP (under torchrun, one rank)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
     if args.train:
         if not args.preset:
-            return classify_profile(args.arch, args.fused_epilogue)
+            try:
+                return classify_profile(args.arch, args.fused_epilogue,
+                                        args.ddp)
+            finally:
+                if torch.distributed.is_initialized():
+                    torch.distributed.destroy_process_group()
         return train_profile(args.preset)
     from torch.profiler import ProfilerActivity, profile
 

@@ -1,6 +1,6 @@
 """Classification trainer CLI: the port's counterpart of the JAX package's
 ``train/cli.py`` (one harness for the reference's ResNet and DeiT
-trainers), on one card.
+trainers), on one card or data-parallel over several.
 
 Recipes, by their flags: SGD with a step or cosine schedule, warm-up and
 label smoothing (the ResNet recipe); AdamW with the timm no-decay groups,
@@ -59,6 +59,22 @@ the resnet families as ``drop_path``, as in the JAX trainer.
     python -m mrla_tpu_torch.train.cli -a resnet50_mrlal --data <dir> \\
         --epochs 90 --batch-size 256 --workers 8 --bf16
 
+Data parallelism: started by ``torchrun --nproc-per-node N -m
+mrla_tpu_torch.train.cli ...`` (its launch environment,
+``parallel/launch.py``), each rank trains on ``cuda:LOCAL_RANK`` (NCCL) or,
+with ``--device cpu``, on the CPU (gloo), its model in DDP.  As in the JAX
+trainer, ``--batch-size`` is the global batch and must divide by the world;
+a rank takes its contiguous rows of each synthetic global batch, or its
+stride of the epoch's indices (the samplers' rank and world), with its
+crops' and augmentation's seeds offset by its rank; BN normalises over the
+global batch (``models/common.py:BatchNorm2d``); Mixup / CutMix mix within
+the rank's rows, as the JAX trainer does across processes and the reference
+per rank.  Validation takes each rank's stride of the val set, padded to
+one length on every rank and masked, with the counts summed over the
+ranks.  The logged loss is the mean over the ranks; checkpoints, ``*.txt``
+and ``log.txt`` are rank 0's, and they hold the unwrapped model, so a run
+resumes, fine-tunes and evaluates at any world size.
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises.
 """
@@ -100,6 +116,16 @@ from mrla_tpu_torch.data.transforms import (
 from mrla_tpu_torch.models import ResNetMRLALight, create_model, list_models
 from mrla_tpu_torch.models import resnet as resnet_models
 from mrla_tpu_torch.nn.layers import set_generator
+from mrla_tpu_torch.parallel import (
+    all_gather_metrics,
+    data_parallel,
+    global_mean,
+    init_distributed,
+    initialized,
+    is_main_process,
+    rank_device,
+    shard_batch,
+)
 from mrla_tpu_torch.train.losses import (
     cross_entropy,
     label_smoothing_ce,
@@ -121,6 +147,8 @@ from mrla_tpu_torch.utils.finetune import (
 )
 
 SYNTHETIC = ("synthetic", "synthetic-learnable")
+RANK_SEED = 1_000_003  # a rank's offset of its crops', augmentation's and
+# drop masks' seeds
 TIMM_STYLE = ("deit", "resmlp", "patchconvnet", "efficientnet")
 PROFILE_STEPS = (5, 15)  # the first epoch's steps [5, 15) are traced
 TRACE_NAME = "trace.json"
@@ -332,12 +360,34 @@ def main(argv=None) -> Dict[str, Any]:
     """Train (or, with ``-e``, evaluate); returns the best acc@1, the
     history of epochs, the last validation's count, the decoder of each
     real-data batch (train and val), the state and the teacher, and of each
-    step its loss and host seconds: ``data_s`` until the batch is on the
-    device (the wait for the source's batch, which is the loader's wait on
-    real data or the synthetic draw, then its copy and the augmentation's
-    launches), ``step_s`` the step up to its loss on the host."""
+    step its loss (the mean over the ranks) and host seconds: ``data_s``
+    until the batch is on the device (the wait for the source's batch,
+    which is the loader's wait on real data or the synthetic draw, then its
+    copy and the augmentation's launches), ``step_s`` the step up to its
+    loss on the host.  A process group that this call joins from the launch
+    environment is left again on return."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # no card: raise before joining a group
+    joined = not initialized()
+    info = init_distributed(device=args.device)
+    try:
+        return _main(args, info)
+    finally:
+        if joined and initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, info) -> Dict[str, Any]:
+    rank, world = info["process_index"], info["process_count"]
+    if args.batch_size % world:
+        raise ValueError(f"global batch {args.batch_size} not divisible by "
+                         f"{world} ranks")
+    local_batch = args.batch_size // world
+    device = rank_device(args.device)
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
+    if world > 1:
+        say(f"distributed: {info}")
     os.makedirs(args.output_dir, exist_ok=True)
     synthetic = args.data in SYNTHETIC
     learnable = args.data == "synthetic-learnable"
@@ -353,8 +403,8 @@ def main(argv=None) -> Dict[str, Any]:
         why = ""
         if interpolation == "bilinear" and not native.available():
             why = f" (native loader: {native.build_error().splitlines()[0]})"
-        print(f"data: {len(train_ds)} train, {len(val_ds)} val images, "
-              f"{interpolation}, decoder {decoder}{why}")
+        say(f"data: {len(train_ds)} train, {len(val_ds)} val images, "
+            f"{interpolation}, decoder {decoder}{why}")
 
     model = build_model(args, device)
     if args.finetune:
@@ -362,6 +412,8 @@ def main(argv=None) -> Dict[str, Any]:
     optimizer, schedule = build_optimizer(args, model, steps_per_epoch)
     state = create_train_state(model, optimizer, schedule,
                                ema_decay=args.ema_decay)
+    if initialized():
+        state.ddp = data_parallel(model, device)
     drop_gen = torch.Generator(device=device)
     set_generator(model, drop_gen)
     aug_gen = torch.Generator(device=device)
@@ -373,7 +425,7 @@ def main(argv=None) -> Dict[str, Any]:
             # the checkpoint holds the just-completed epoch
             state, last_epoch, best_acc1 = restored
             start_epoch = last_epoch + 1
-            print(f"resumed from {args.resume} after epoch {last_epoch}")
+            say(f"resumed from {args.resume} after epoch {last_epoch}")
 
     use_soft = args.mixup > 0 or args.cutmix > 0
     if use_soft:
@@ -388,57 +440,67 @@ def main(argv=None) -> Dict[str, Any]:
     decoders = {"train": [], "val": []}
 
     def eval_batches():
-        """(images, labels, valid) on the device, the val set whole."""
+        """(images, labels, valid) on the device: this rank's rows of the
+        val set (the synthetic global batches' rows, or its stride of the
+        val set padded to the same length on every rank)."""
         if synthetic:
             for b in synthetic_batches(args.batch_size, args.image_size,
                                        args.num_classes, 2, seed=123,
                                        learnable=learnable):
+                b = shard_batch(b, rank, world)
                 yield (torch.from_numpy(b["image"]).to(device),
                        torch.from_numpy(b["label"]).to(device), None)
             return
-        n = len(val_ds)
+        idxs = np.arange(rank, len(val_ds), world)
+        n = len(idxs)
+        n_local = -(-len(val_ds) // world)  # the same on every rank
+        idxs = np.concatenate([idxs, np.zeros(n_local - n, np.int64)])
         for i, b in enumerate(iterate_batches(
-                val_ds, np.arange(n), args.batch_size, args.image_size,
+                val_ds, idxs, local_batch, args.image_size,
                 train=False, num_threads=args.workers, drop_last=False,
                 interpolation=interpolation)):
             decoders["val"].append(b["decoder"])
-            valid = i * args.batch_size + np.arange(args.batch_size) < n
+            valid = i * local_batch + np.arange(local_batch) < n
             yield (normalize(torch.from_numpy(
-                       pad_rows(b["image"], args.batch_size)).to(device)),
+                       pad_rows(b["image"], local_batch)).to(device)),
                    torch.from_numpy(
-                       pad_rows(b["label"], args.batch_size)).to(device),
+                       pad_rows(b["label"], local_batch)).to(device),
                    torch.from_numpy(valid).to(device))
 
     def validate(epoch):
-        top1 = top5 = count = 0
+        sums = {"top1": 0, "top5": 0, "count": 0}
         for images, labels, valid in eval_batches():
             batch = {"image": images, "label": labels}
             if valid is not None:
                 batch["valid"] = valid
             out = eval_step(state, batch, use_ema=args.ema_decay > 0,
                             bf16=args.bf16)
-            top1 += int(out["top1"])
-            top5 += int(out["top5"])
-            count += int(out["count"])
-        acc1 = 100.0 * top1 / max(count, 1)
-        acc5 = 100.0 * top5 / max(count, 1)
-        print(f"epoch {epoch}: val acc@1 {acc1:.3f} acc@5 {acc5:.3f} "
-              f"({count} images)")
+            for k in sums:
+                sums[k] += int(out[k])
+        sums = {k: int(v) for k, v in all_gather_metrics(sums).items()}
+        count = sums["count"]
+        acc1 = 100.0 * sums["top1"] / max(count, 1)
+        acc5 = 100.0 * sums["top5"] / max(count, 1)
+        say(f"epoch {epoch}: val acc@1 {acc1:.3f} acc@5 {acc5:.3f} "
+            f"({count} images)")
         return acc1, acc5, count
 
     def train_batches(epoch):
+        """This rank's batches: its rows of each synthetic global batch, or
+        its stride of the epoch's indices."""
         if synthetic:
-            return synthetic_batches(args.batch_size, args.image_size,
-                                     args.num_classes, steps_per_epoch,
-                                     seed=args.seed + epoch,
-                                     learnable=learnable)
+            return (shard_batch(b, rank, world) for b in synthetic_batches(
+                args.batch_size, args.image_size, args.num_classes,
+                steps_per_epoch, seed=args.seed + epoch,
+                learnable=learnable))
         sampler = (ra_sampler_indices if args.repeated_aug
                    else distributed_indices)
         return iterate_batches(
-            train_ds, sampler(len(train_ds), 0, 1, epoch, seed=args.seed),
-            args.batch_size, args.image_size, train=True,
-            seed=args.seed + epoch, num_threads=args.workers,
-            interpolation=interpolation)
+            train_ds, sampler(len(train_ds), rank, world, epoch,
+                              seed=args.seed),
+            local_batch, args.image_size, train=True,
+            seed=args.seed + epoch + RANK_SEED * rank,
+            num_threads=args.workers, interpolation=interpolation)
 
     if args.evaluate:
         acc1, acc5, count = validate(start_epoch)
@@ -450,17 +512,19 @@ def main(argv=None) -> Dict[str, Any]:
     for epoch in range(start_epoch, args.epochs):
         t0 = t1 = time.perf_counter()
         losses = AverageMeter("loss")
-        drop_gen.manual_seed(args.seed + 1000 * (epoch + 1))
+        drop_gen.manual_seed(args.seed + 1000 * (epoch + 1)
+                             + RANK_SEED * rank)
         prof = None
         for i, b in enumerate(train_batches(epoch)):
-            if args.profile_dir and epoch == start_epoch:
+            if args.profile_dir and epoch == start_epoch and main_rank:
                 if i == PROFILE_STEPS[0]:
                     prof = start_profile(device)
                 elif i == PROFILE_STEPS[1] and prof is not None:
                     stop_profile(prof, args.profile_dir)
                     prof = None
             rng = np.random.default_rng(
-                [args.seed + 1, epoch * steps_per_epoch + i])
+                [args.seed + 1 + RANK_SEED * rank,
+                 epoch * steps_per_epoch + i])
             images = torch.from_numpy(b["image"]).to(device)
             labels = torch.from_numpy(b["label"]).to(device)
             if not synthetic:
@@ -483,14 +547,14 @@ def main(argv=None) -> Dict[str, Any]:
                 distill_kind=args.distillation_type,
                 distill_alpha=args.distillation_alpha,
                 distill_tau=args.distillation_tau, bf16=args.bf16)
-            loss = float(metrics["loss"])  # waits for the step
+            loss = float(global_mean(metrics["loss"]))  # waits for the step
             data_s.append(t2 - t1)
             t1 = time.perf_counter()
             step_s.append(t1 - t2)
             step_loss.append(loss)
             losses.update(loss, len(b["label"]))
             if i % args.print_freq == 0:
-                print(f"epoch {epoch} [{i}/{steps_per_epoch}] {losses}")
+                say(f"epoch {epoch} [{i}/{steps_per_epoch}] {losses}")
             if not np.isfinite(loss):
                 raise FloatingPointError(f"non-finite loss at epoch {epoch}")
         if prof is not None:  # the epoch ended before the last traced step
@@ -499,16 +563,17 @@ def main(argv=None) -> Dict[str, Any]:
         acc1, acc5, val_count = validate(epoch)
         is_best = acc1 > best_acc1
         best_acc1 = max(acc1, best_acc1)
-        save_checkpoint(args.output_dir, state, epoch, best_acc1,
-                        is_best=is_best, keep_every=30)
-        data_save(args.output_dir, "train_loss", epoch, losses.avg)
-        data_save(args.output_dir, "val_acc1", epoch, acc1)
-        data_save(args.output_dir, "val_acc5", epoch, acc5)
-        jsonl_log(os.path.join(args.output_dir, "log.txt"), {
-            "epoch": epoch, "train_loss": losses.avg, "test_acc1": acc1,
-            "test_acc5": acc5, "best_acc1": best_acc1,
-            "epoch_time_s": round(time.perf_counter() - t0, 1),
-        })
+        if main_rank:
+            save_checkpoint(args.output_dir, state, epoch, best_acc1,
+                            is_best=is_best, keep_every=30)
+            data_save(args.output_dir, "train_loss", epoch, losses.avg)
+            data_save(args.output_dir, "val_acc1", epoch, acc1)
+            data_save(args.output_dir, "val_acc5", epoch, acc5)
+            jsonl_log(os.path.join(args.output_dir, "log.txt"), {
+                "epoch": epoch, "train_loss": losses.avg, "test_acc1": acc1,
+                "test_acc5": acc5, "best_acc1": best_acc1,
+                "epoch_time_s": round(time.perf_counter() - t0, 1),
+            })
         history.append({"epoch": epoch, "loss": losses.avg, "acc1": acc1})
 
     return {"best_acc1": best_acc1, "history": history, "loss": step_loss,

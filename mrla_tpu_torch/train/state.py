@@ -21,12 +21,15 @@ from mrla_tpu_torch.nn.layers import DropPath, Dropout
 
 @dataclass
 class TrainState:
+    """``ddp``: the module the step runs under data parallelism (DDP around
+    ``model``); checkpoints and the EMA hold ``model`` itself."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
     ema: Optional[nn.Module] = None
     ema_decay: float = 0.0
+    ddp: Optional[nn.Module] = None
 
 
 def _ema_pairs(state: TrainState) -> Tuple[List[torch.Tensor],

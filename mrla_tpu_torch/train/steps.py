@@ -4,7 +4,9 @@
 mode (under ``torch.autocast`` bf16 when asked: fp32 parameters, bf16
 compute), the loss, the backward, an optional global-norm clip
 (g·min(1, c / (‖g‖ + 1e-6)), as ``clip_grad_norm_``), the optimizer step,
-the EMA.  With a teacher (DeiT distillation), the teacher runs in eval
+the EMA.  Under data parallelism the forward runs through ``state.ddp``,
+which averages the gradients over the ranks (each rank's loss a mean over
+its rows of the global batch).  With a teacher (DeiT distillation), the teacher runs in eval
 mode under ``no_grad``; a distilled student returns (cls, dist) in
 training, the base loss goes on the cls head and the distillation term on
 the dist head; a plain model's one head takes both.
@@ -43,7 +45,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         group["lr"] = state.schedule(state.step)
     model.train()
     with _autocast(images.device, bf16):
-        logits = model(images)
+        logits = (model if state.ddp is None else state.ddp)(images)
         cls, dist = logits if isinstance(logits, tuple) else (logits, logits)
         loss = loss_fn(cls, labels)
         if teacher is not None and distill_kind != "none":

@@ -1524,3 +1524,112 @@ def test_detection_trainer_on_coco_on_the_card(cuda, tmp_path):
                                 str(tmp_path / "run")])
     assert ev["val_count"] == line["val_count"] == 3
     assert ev["mAP"] == line["mAP"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_init_distributed_on_nccl_at_world_1(cuda, monkeypatch, tmp_path):
+    """The launch environment of one rank: NCCL on cuda:0, an all-reduce
+    of a CUDA tensor, and the classification trainer's step through DDP;
+    the group is left again on return."""
+    import torch.distributed as dist
+
+    from mrla_tpu_torch.parallel import (
+        global_sum,
+        init_distributed,
+        initialized,
+    )
+    from mrla_tpu_torch.train import cli
+
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    info = init_distributed(device="cuda")
+    try:
+        assert info["process_count"] == 1 and dist.get_backend() == "nccl"
+        t = torch.arange(4.0, device="cuda")
+        dist.all_reduce(t)
+        assert torch.equal(t, torch.arange(4.0, device="cuda"))
+        assert torch.equal(global_sum(t), t)
+    finally:
+        dist.destroy_process_group()
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    res = cli.main(["-a", "resnet50_mrlal", "--layers", "1", "1", "1", "1",
+                    "--image-size", "32", "--num-classes", "3", "-b", "4",
+                    "--synthetic-steps", "2", "--epochs", "1",
+                    "--output-dir", str(tmp_path)])
+    assert len(res["loss"]) == 2 and all(map(math.isfinite, res["loss"]))
+    assert res["state"].ddp is not None and not initialized()
+
+
+def _rank_variants(tmp_path, step, spec, names):
+    from mrla_tpu_torch.parallel import checks
+    from mrla_tpu_torch.parallel.spawn import run_ranks
+
+    return run_ranks(checks.variants, 2, str(tmp_path),
+                     args=(step, spec, names, "cuda:0"), timeout=300)
+
+
+def test_global_batch_norm_through_gloo_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing cuda:0: a BN stack on CUDA tensors at 2 ranks
+    against 1 rank on the global batch on the card (output, input gradient,
+    weight gradients, running statistics); per-replica BN fails."""
+    from mrla_tpu_torch.parallel import checks
+
+    gen = torch.Generator().manual_seed(0)
+    spec = {"seed": 3, "x": torch.randn(8, 64, 7, 7, generator=gen) * 2 + 1,
+            "cot": torch.randn(8, 64, 7, 7, generator=gen)}
+    want = checks.bn_step(spec, device="cuda")
+    ranks = _rank_variants(tmp_path, checks.bn_step, spec,
+                           ("global", "replica_bn"))
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for k in ("y", "dx"):
+        got = torch.cat([r["global"][k] for r in ranks])
+        torch.testing.assert_close(got, want[k], **tol)
+        bad = torch.cat([r["replica_bn"][k] for r in ranks])
+        assert not torch.allclose(bad, want[k], **tol), k
+    for r in ranks:
+        for k, v in want["grads"].items():
+            torch.testing.assert_close(r["global"]["grads"][k], v, **tol)
+        for k, v in want["buffers"].items():
+            torch.testing.assert_close(r["global"]["buffers"][k], v, **tol)
+
+
+def test_per_rank_normaliser_fault_fails_on_the_card(cuda, tmp_path):
+    """A small RetinaNet step at two gloo ranks on cuda:0 against one rank
+    on the global batch on the card: num_pos exact, the loss and every
+    gradient within the CPU test's limits; a per-rank avg_factor fails."""
+    from mrla_tpu_torch.detect.retinanet import RetinaNet
+    from mrla_tpu_torch.parallel import checks
+
+    gen = torch.Generator().manual_seed(0)
+    model = RetinaNet(layers=(1, 1, 1, 1), num_classes=4, generator=gen)
+    xy = torch.rand(8, 2, 2, generator=gen) * 20 + 4
+    wh = torch.rand(8, 2, 2, generator=gen) * 20 + 12
+    spec = {"kind": "retinanet",
+            "model": {"layers": (1, 1, 1, 1), "num_classes": 4},
+            "state_dict": model.state_dict(), "norm_eval": False, "lr": 0.01,
+            "batch": {"image": torch.randn(8, 64, 64, 3, generator=gen),
+                      "gt_boxes": torch.cat([xy, xy + wh], -1),
+                      "gt_labels": torch.randint(0, 4, (8, 2), generator=gen),
+                      "gt_valid": torch.ones(8, 2, dtype=torch.bool)}}
+    want = checks.detection_step(spec, device="cuda")
+    ranks = _rank_variants(tmp_path, checks.detection_step, spec,
+                           ("global", "replica_norm"))
+    tol = dict(rtol=5e-3, atol=2e-4)
+    sound, fault = ranks[0]["global"], ranks[0]["replica_norm"]
+    assert sound["terms"]["num_pos"] == want["terms"]["num_pos"] > 0
+    assert abs(sound["terms"]["loss"] - want["terms"]["loss"]) <= \
+        1e-4 * want["terms"]["loss"]
+    for k, v in want["grads"].items():
+        torch.testing.assert_close(sound["grads"][k], v, **tol)
+    assert abs(fault["terms"]["loss"] - want["terms"]["loss"]) > \
+        1e-4 * want["terms"]["loss"]
+    assert ranks[1]["global"]["same"]

@@ -406,3 +406,125 @@ def test_registered_archs_build_and_serve_a_forward(arch):
     with torch.no_grad():
         out = model(torch.zeros(2, 32, 32, 3))
     assert out.shape == (2, 10) and torch.isfinite(out).all()
+
+
+# ----------------------------------------- the training options (item 5a)
+
+# kind -> (Flax class, port class, options, layers, RNG collections)
+OPTION_KINDS = {
+    "mrlab": (FlaxMRLABase, ResNetMRLABase,
+              dict(groups=2, width_per_group=32, drop_path=0.3,
+                   drop_rate=0.2), (1, 2, 1, 1)),
+    "la_eq4": (FlaxLAEq4, ResNetLAEq4,
+               dict(se=True, eca=(3, 3, 5, 5), groups=2, width_per_group=32,
+                    drop_rate=0.2), (1, 2, 1, 1)),
+}
+
+
+def _flax_train_forward(model, variables, x):
+    """Flax's train forward (logits, batch_stats) and the keep masks its
+    DropPath and Dropout draw, in the order drawn: ``jax.random.bernoulli``
+    recorded while the forward traces, the masks returned from the jit."""
+    masks, real = [], jax.random.bernoulli
+
+    def record(*a, **kw):
+        masks.append(real(*a, **kw))
+        return masks[-1]
+
+    def fwd(v, x):
+        masks.clear()
+        out, mut = model.apply(v, x, train=True, mutable=["batch_stats"],
+                               rngs={"droppath": jax.random.key(1),
+                                     "dropout": jax.random.key(2)})
+        return out, mut["batch_stats"], list(masks)
+
+    jax.random.bernoulli = record
+    try:
+        return jax.jit(fwd)(jax.tree.map(jnp.asarray, variables),
+                            jnp.asarray(x))
+    finally:
+        jax.random.bernoulli = real
+
+
+@pytest.mark.parametrize("kind", list(OPTION_KINDS))
+def test_train_forward_with_the_options_matches_flax(kind, monkeypatch):
+    """mrlab with groups, width_per_group, DropPath on the attention branch
+    and dropout before fc; la_eq4 with SE, ECA, groups, width_per_group and
+    dropout: the train forward's logits and BN statistics against Flax's,
+    the port's masks the ones Flax draws (each module's in call order)."""
+    from mrla_tpu_torch.models.common import BatchNorm2d
+    from mrla_tpu_torch.ops import drop
+
+    flax_cls, port_cls, kw, layers = OPTION_KINDS[kind]
+    port = port_cls(list(layers), num_classes=10, **kw,
+                    generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for name, m in port.named_modules():
+            if isinstance(m, BatchNorm2d) and name.endswith(("bn3",
+                                                             "bn_mrla")):
+                m.weight.uniform_(0.1, 0.5)
+    sd = {k: v.numpy().copy() for k, v in port.state_dict().items()}
+    variables = convert_mrla_base_state_dict(sd)
+    x = _rand(np.random.default_rng(5), 4, 32, 32, 3)
+    want, stats, masks = _flax_train_forward(
+        flax_cls(layers=list(layers), num_classes=10, **kw), variables, x)
+    n_drop = sum(layers) if "drop_path" in kw else 0
+    assert len(masks) == n_drop + 1  # DropPath a block, then the head
+    assert any(not np.asarray(m).all() for m in masks)  # something drops
+    queue = [torch.from_numpy(np.array(m)) for m in masks]
+
+    def jax_mask(x, rate, shape, generator, what):
+        mask = queue.pop(0)
+        assert tuple(mask.shape) == tuple(shape), what
+        return torch.where(mask, x / (1.0 - rate), torch.zeros((),
+                                                                dtype=x.dtype))
+
+    monkeypatch.setattr(drop, "_masked", jax_mask)
+    got = port.train()(torch.from_numpy(x))
+    assert not queue
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    j_sd = state_dict_from_jax({"params": variables["params"],
+                                "batch_stats": jax.device_get(stats)})
+    for k, v in port.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), j_sd[k].numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_bridge_carries_la_eq4_with_se_and_eca():
+    """la_eq4 with SE and ECA: its state_dict goes to Flax (the JAX
+    package's converter) and back through the bridge unchanged, the gates'
+    ``se.fc.{0,2}`` and ``eca.conv`` included."""
+    kw = dict(se=True, eca=(3, 3, 5, 5))
+    port = ResNetLAEq4([1, 1, 1, 1], num_classes=10, **kw,
+                       generator=torch.Generator().manual_seed(4))
+    sd = port.state_dict()
+    variables = convert_mrla_base_state_dict(
+        {k: v.numpy() for k, v in sd.items()})
+    assert "se" in variables["params"]["layer4_0"]
+    assert "eca" in variables["params"]["layer4_0"]
+    back = state_dict_from_jax(variables)
+    assert back.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+    assert back["layer4.0.se.fc.0.weight"].shape == (128, 2048)
+    assert back["layer4.0.eca.conv.weight"].shape == (1, 1, 5)
+
+
+def test_cli_trains_resnet50_mrlab_with_drop_path_and_dropout(tmp_path):
+    """The trainer builds resnet50_mrlab (full depth: --layers takes no
+    mrlab arch) with --drop-path and --drop-rate and takes a step."""
+    from mrla_tpu_torch.nn.layers import DropPath, Dropout
+    from mrla_tpu_torch.train import cli
+
+    res = cli.main(["-a", "resnet50_mrlab", "--drop-path", "0.1",
+                    "--drop-rate", "0.1", "--image-size", "32", "-b", "2",
+                    "--num-classes", "3", "--epochs", "1",
+                    "--synthetic-steps", "1", "--device", "cpu",
+                    "--output-dir", str(tmp_path)])
+    assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
+    model = res["state"].model
+    assert {m.rate for m in model.modules()
+            if isinstance(m, DropPath)} == {0.1}
+    assert model.head_drop.p == 0.1 and isinstance(model.head_drop, Dropout)
