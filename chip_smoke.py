@@ -243,10 +243,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      fault) failing them, 1 RoIAlign forward and 1 backward in each rank;
      the two ranks' weights bitwise equal after every sound step; the
      phase's wall time beside DP_WALL_S;
+  8g. model and pipeline parallelism (parallel/mesh.py, sharding.py,
+     pipeline.py, serving/sharded.py, dryrun.py): (a) sharded serving:
+     make_sharded_forward over a one-rank mesh with NCCL at world 1 equal
+     to the engine bitwise; then two gloo ranks sharing the card, each
+     serving its 64 rows of resnet50_mrlal (224 px, global batch 128, bf16,
+     MP_REQUESTS requests) and of deit_mrlal_small_patch16_224 (full
+     depth), its logits held to the single-card engine on the whole batch
+     under the engine's logit_error bar, the kernel launches per rank by
+     shape exactly the main paths' tables at 64 rows (rows 1, 3 and 7 of
+     the kernels line), img/s per rank and of both together beside the
+     single-card engine's; (b) tensor parallelism: two gloo ranks on a data
+     1 x model 2 mesh, one fp32 SGD step (TF32 off) of the seeded full-depth
+     resnet50_mrlal (224 px, global batch 8, the step of 8b(a)) against the
+     same step at world 1 on the card within CLS_STEP_TOLS, while the
+     gathers' backward summing over the model group (tp_sum_grad) must fail
+     them; each rank's parameter + momentum bytes against the replicated
+     model's; (c) the pipeline: two gloo ranks on a pipe 2 mesh, the
+     full-depth deit_mrlal_small_patch16_224 at 224 px, batch 32, 4
+     microbatches, fp32: its forward held to the unpipelined module on the
+     card within MP_PIPE_FWD_TOL, one SGD step from the resident layout
+     held to the module's step within CLS_STEP_TOLS, the final broadcast's
+     backward summing over the stages (pipe_sum_out) failing them, ms a
+     step against world 1; (d) dryrun_multichip(4, backend="gloo") on the
+     card: its five lines and finite losses; the phase's wall time beside
+     MP_WALL_S.  No earlier phase is cut for it;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
      its main path, and its launches on the other paths (the DDP training
-     run of 8f among them);
+     run of 8f and the sharded-serving ranks of 8g among them, the latter
+     also by shape);
  10. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -968,27 +994,9 @@ DEIT_PATH = "deit_mrlal_small"
 
 def all_counters():
     """Every kernel wrapper's launch counter, by the kernels line's key."""
-    from mrla_tpu_torch.kernels import (
-        deit_token_tail,
-        fused_block_tail,
-        fused_epilogue,
-        hwbc_copy,
-        mrla_block_tail_fused_next,
-        mrla_block_tail_hwbc,
-        mrla_rowtail,
-        roi_align_patch,
-        stage4_resident,
-    )
+    from mrla_tpu_torch.parallel.checks import kernel_counters
 
-    return {"megatail": mrla_block_tail_fused_next.counter,
-            "epilogue": fused_epilogue.counter,
-            "stage4": stage4_resident.counter,
-            "deit_tail": deit_token_tail.counter,
-            "roi_align": roi_align_patch.counter,
-            "block_tail": fused_block_tail.counter,
-            "block_tail_hwbc": mrla_block_tail_hwbc.counter,
-            "rowtail": mrla_rowtail.counter,
-            "copy": hwbc_copy.counter}
+    return kernel_counters()
 
 
 def check_logits_out(out) -> None:
@@ -2536,10 +2544,10 @@ def cls_step_errors(got, ref, init) -> dict:
     update at least CLS_UPDATE_FLOOR in RMS)."""
     def worst(g, r, i):
         return max(
-            (g[k] - v).norm().item()
-            / max((v - i[k]).norm().item(),
-                  CLS_UPDATE_FLOOR * v.numel() ** 0.5)
-            for k, v in r.items())
+            ((g[k] - v).norm().item()
+             / max((v - i[k]).norm().item(),
+                   CLS_UPDATE_FLOOR * v.numel() ** 0.5)
+             for k, v in r.items()), default=0.0)
     return {"loss": abs(got[0] - ref[0]) / abs(ref[0]),
             "param": worst(got[1], ref[1], init[0]),
             "stat": worst(got[2], ref[2], init[1])}
@@ -4003,7 +4011,252 @@ def data_parallelism(smi: str) -> dict:
     return launches
 
 
-def kernels_line(rows, launches, per_forward):
+# Phase 8g, model and pipeline parallelism.  (a) Sharded serving: NCCL at
+# world 1 (a one-rank mesh, bitwise the engine), then two gloo ranks sharing
+# the card, each its 64 rows (parallel/checks.py: sharded_serving), held to
+# the single-card engine on the whole batch.  (b) TP on a data 1 x model 2
+# mesh and (c) the GPipe schedule on a pipe 2 mesh, each one fp32 step
+# against world 1 on the card, with an injected fault that must fail.  (d)
+# dryrun_multichip(4) over gloo on the card.
+MP_WORLD, MP_ROWS = 2, BATCH // 2
+MP_PATHS = {"resnet": "resnet50_mrlal sharded serving, 2 ranks",
+            "deit": "deit_mrlal_small sharded serving, 2 ranks"}
+MP_REQUESTS, MP_TIMED = 4, 10
+MP_TP_BATCH, MP_PIPE_BATCH, MP_PIPE_MICRO, MP_PIPE_LR = 8, 32, 4, 0.01
+MP_TP_FAULT, MP_PIPE_FAULT = "tp_sum_grad", "pipe_sum_out"
+# the pipelined forward's largest |Δlogit| over the module's largest
+# |logit| (fp32, TF32 off: only the microbatches' reduction order differs)
+MP_PIPE_FWD_TOL = 1e-4
+MP_WALL_S = 180.0  # the phase's target wall time, printed beside it
+
+
+def _rows_table(shapes: dict, requests: int) -> dict:
+    """A main path's launches per forward by shape at 128 rows -> the
+    launches of ``requests`` forwards at MP_ROWS rows."""
+    return {(MP_ROWS,) + s[1:]: n * requests for s, (_, n) in shapes.items()}
+
+
+def _timed_s(forward, x, n: int) -> float:
+    with torch.no_grad():
+        forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            forward(x)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mp_serving(smi: str, model, deit) -> tuple:
+    """(a); returns (launches by path and kernel, the same by shape)."""
+    import torch.distributed as dist
+
+    from mrla_tpu_torch.parallel import checks, init_distributed, make_mesh
+    from mrla_tpu_torch.parallel.spawn import run_ranks
+    from mrla_tpu_torch.serving import (
+        deit_forward,
+        make_sharded_forward,
+        prepare_deit_inference_params,
+        prepare_inference_params,
+        resnet_mrlal_forward,
+    )
+    from mrla_tpu_torch.testing import images
+
+    x = images(torch.Generator().manual_seed(7), BATCH, PX)
+    xc = x.cuda()
+    params = prepare_inference_params(model, device="cuda",
+                                      dtype=torch.bfloat16)
+    deit_params = prepare_deit_inference_params(deit, device="cuda",
+                                                 dtype=torch.bfloat16)
+    with launch_env():
+        init_distributed(device="cuda")
+        try:
+            backend = dist.get_backend()
+            with torch.no_grad():
+                got = make_sharded_forward(make_mesh(("data",), (1,)))(
+                    params, xc)
+                want = resnet_mrlal_forward(params, xc)
+        finally:
+            dist.destroy_process_group()
+    print(f"model parallelism (a), make_sharded_forward over a one-rank "
+          f"mesh ({backend} at world 1): bitwise the engine "
+          f"{torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("a one-rank sharded forward differs from the "
+                             "engine")
+    engines = {"resnet": lambda xb: resnet_mrlal_forward(params, xb),
+               "deit": lambda xb: deit_forward(deit_params, xb)}
+    with torch.no_grad():
+        full = {k: f(xc).float().cpu() for k, f in engines.items()}
+    single = {k: BATCH * MP_TIMED / _timed_s(f, xc, MP_TIMED)
+              for k, f in engines.items()}
+    del params, deit_params
+    torch.cuda.empty_cache()
+    spec = {"cases": {
+        "resnet": ("resnet_mrlal", ((3, 4, 6, 3), model.state_dict()), {},
+                   x),
+        "deit": ("deit", (DEIT_ARCH, deit.state_dict()), {}, x)},
+        "dtype": torch.bfloat16, "requests": MP_REQUESTS,
+        "timed": MP_TIMED}
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks(checks.sharded_serving, MP_WORLD, work,
+                          args=(spec, "cuda:0"), timeout=600)
+    want = {"resnet": {"epilogue": _rows_table(EPILOGUE_SHAPES, MP_REQUESTS),
+                       "megatail": _rows_table(MEGATAIL_SHAPES,
+                                               MP_REQUESTS)},
+            "deit": {"deit_tail": _rows_table(DEIT_TAIL_SHAPES,
+                                              MP_REQUESTS)}}
+    tol = {"resnet": LOGIT_ERROR_TOL, "deit": DEIT_LOGIT_ERROR_TOL}
+    launches, by_shape = {}, {}
+    for case, path in MP_PATHS.items():
+        wall = max(r[case]["s"] for r in ranks)
+        for r, res in enumerate(ranks):
+            got = res[case]
+            rows = slice(r * MP_ROWS, (r + 1) * MP_ROWS)
+            err = logit_error(got["out"].float(), full[case][rows])
+            print(f"model parallelism (a), {path}, rank {r}: logit error "
+                  f"against the single-card engine {err:.4g} (tol "
+                  f"{tol[case]}); launches by shape {got['launches']} "
+                  f"(want {want[case]}); "
+                  f"{MP_ROWS * MP_TIMED / got['s']:.1f} img/s on {smi}")
+            if not err <= tol[case]:
+                raise AssertionError(f"{path} rank {r}: logit error {err}")
+            if got["launches"] != want[case]:
+                raise AssertionError(f"{path} rank {r}: launches "
+                                     f"{got['launches']} != {want[case]}")
+        print(f"model parallelism (a), {path}: "
+              f"{BATCH * MP_TIMED / wall:.1f} img/s by both ranks together "
+              f"(the global batch over the slower rank's time; the timed "
+              f"runs start together), the single-card engine "
+              f"{single[case]:.1f} img/s on the whole batch, on {smi}")
+        launches[path] = {k: sum(sum(r[case]["launches"].get(k, {}).values())
+                                 for r in ranks) for k in all_counters()}
+        by_shape[path] = {k: {str(list(sh)): sum(
+            r[case]["launches"].get(k, {}).get(sh, 0) for r in ranks)
+            for sh in want[case][k]} for k in want[case]}
+    return launches, by_shape
+
+
+def _stepped_state(ranks: list, job: int) -> dict:
+    """The whole DeiT weights after a pipelined step: the pipe ranks' spans
+    in order and rank 0's rest."""
+    from mrla_tpu_torch.parallel import unstack_block_params
+
+    spans = [r[job]["span"] for r in ranks]
+    return unstack_block_params(
+        {k: torch.cat([s[k] for s in spans]) for k in spans[0]},
+        ranks[0][job]["rest"])
+
+
+def mp_training(smi: str, model, deit) -> None:
+    """(b) and (c): world-1 references on the card, then both ranks'
+    jobs in one launch."""
+    from mrla_tpu_torch.parallel import checks
+    from mrla_tpu_torch.parallel.spawn import run_ranks
+    from mrla_tpu_torch.testing import images
+
+    gen = torch.Generator().manual_seed(5)
+    cls = {"model": {"layers": [3, 4, 6, 3], "num_classes": 1000},
+           "state_dict": model.state_dict(),
+           "batch": {"image": images(gen, MP_TP_BATCH, CLS_PX),
+                     "label": torch.randint(0, 1000, (MP_TP_BATCH,),
+                                            generator=gen)},
+           "lr": CLS_LR, "momentum": 0.9, "weight_decay": 1e-4,
+           "label_smooth": 0.1}
+    pipe = {"model": ("light", {"embed_dim": 384, "depth": 12,
+                                "num_heads": 6}),
+            "state_dict": deit.state_dict(),
+            "x": images(gen, MP_PIPE_BATCH, PX),
+            "labels": torch.randint(0, 1000, (MP_PIPE_BATCH,),
+                                    generator=gen),
+            "microbatches": MP_PIPE_MICRO, "lr": MP_PIPE_LR, "step": True}
+    ref_tp = checks.classification_step(cls, "global", CARD)
+    ref_pipe = checks.pipeline_step(pipe, "global", CARD)
+    tp = dict(cls, mesh=(1, MP_WORLD))
+    pp = dict(pipe, mesh=(("pipe",), (MP_WORLD,)))
+    jobs = [(checks.classification_step, tp, "global"),
+            (checks.classification_step, tp, MP_TP_FAULT),
+            (checks.pipeline_step, pp, "global"),
+            (checks.pipeline_step, pp, MP_PIPE_FAULT)]
+    torch.cuda.empty_cache()
+    card = torch.device(CARD)
+    shared = f"{card.type}:0" if card.type == "cuda" else card.type
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks(checks.calls, MP_WORLD, work,
+                          args=(jobs, shared), timeout=900)
+    init = _split_state(cls["state_dict"])
+    as_step = lambda r: (r["loss"], *_split_state(r["state"]))  # noqa
+    for i, name in ((0, "tp"), (1, f"tp {MP_TP_FAULT} (fault)")):
+        e = cls_step_errors(as_step(ranks[0][i]), as_step(ref_tp), init)
+        print(f"model parallelism (b), {name} data 1 x model 2 against "
+              "world 1 on the card: " + ", ".join(
+                  f"{k} {v:.4g} (tol {CLS_STEP_TOLS[k]})"
+                  for k, v in e.items()))
+        within = all(v <= CLS_STEP_TOLS[k] for k, v in e.items())
+        if within == name.endswith("(fault)"):
+            raise AssertionError(f"model parallelism (b), {name}: {e}")
+    for r, res in enumerate(ranks):
+        print(f"model parallelism (b), rank {r}: parameter + momentum "
+              f"bytes {res[0]['bytes']} against the replicated model's "
+              f"{ref_tp['bytes']} ({res[0]['bytes'] / ref_tp['bytes']:.3f});"
+              f" {len(res[0]['sharded'])} leaves sharded")
+    if not all(r[0]["same"] for r in ranks):
+        raise AssertionError("the TP step's data replicas differ")
+    want = ref_pipe["logits"]
+    for r, res in enumerate(ranks):
+        fwd = ((res[2]["logits"] - want).abs().max()
+               / want.abs().max()).item()
+        print(f"model parallelism (c), rank {r}: the pipelined forward's "
+              f"largest |dlogit| over the module's largest |logit| "
+              f"{fwd:.3g} (tol {MP_PIPE_FWD_TOL})")
+        if not fwd <= MP_PIPE_FWD_TOL:
+            raise AssertionError(f"pipelined forward on rank {r}: {fwd}")
+    init = {k: v for k, v in pipe["state_dict"].items()}
+    for job, name in ((2, "pipe 2"), (3, f"pipe 2 {MP_PIPE_FAULT} (fault)")):
+        got = (ranks[0][job]["loss"], _stepped_state(ranks, job), {})
+        e = cls_step_errors(got, (ref_pipe["loss"], ref_pipe["state"], {}),
+                            (init, {}))
+        e.pop("stat")
+        print(f"model parallelism (c), {name} against the module's step on "
+              f"the card: " + ", ".join(f"{k} {v:.4g} (tol "
+                                        f"{CLS_STEP_TOLS[k]})"
+                                        for k, v in e.items()))
+        within = all(v <= CLS_STEP_TOLS[k] for k, v in e.items())
+        if within == name.endswith("(fault)"):
+            raise AssertionError(f"model parallelism (c), {name}: {e}")
+    ms = [round(r[2]["ms"], 2) for r in ranks]
+    print(f"model parallelism (c): ms a step {ms} by rank (pipe 2, "
+          f"{MP_PIPE_MICRO} microbatches of "
+          f"{MP_PIPE_BATCH // MP_PIPE_MICRO}) against {ref_pipe['ms']:.2f} at "
+          f"world 1, fp32, on {smi}")
+
+
+def model_parallelism(smi: str) -> tuple:
+    """Phase 8g; returns the sharded-serving launches (by path and kernel,
+    and by shape)."""
+    from mrla_tpu_torch import dryrun_multichip
+    from mrla_tpu_torch.testing import deit_serving_model, serving_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model, deit = serving_model(0), deit_serving_model(DEIT_ARCH, 0)
+    print(f"model parallelism: seeded models in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = mp_serving(smi, model, deit)
+    torch.cuda.empty_cache()
+    mp_training(smi, model, deit)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ran = dryrun_multichip(4, backend="gloo")
+    print(f"model parallelism (d): dryrun_multichip(4) over gloo on the "
+          f"card, tp {ran['tp']}, {len(ran['lines'])} steps in "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(f"model parallelism phase 8g: {time.perf_counter() - t0:.1f} s "
+          f"(target {MP_WALL_S})")
+    return launches
+
+
+def kernels_line(rows, launches, per_forward, by_shape=None):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
     path (the DeiT path for the token tail, use_stage4=True for the stage
@@ -4061,6 +4314,9 @@ def kernels_line(rows, launches, per_forward):
             "launches_on_other_paths": {
                 other: n.get(key, 0) for other, n in launches.items()
                 if other != path},
+            "launches_by_shape_on_other_paths": {
+                other: n[key] for other, n in (by_shape or {}).items()
+                if key in n},
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": weighted("ms"),
             "plain_ms": weighted("plain_ms"),
@@ -4114,7 +4370,9 @@ def main() -> int:
     train_real_data(smi)
     detection_rest(smi)
     launches[DP_PATH] = data_parallelism(smi)
-    print(json.dumps(kernels_line(rows, launches, per_forward)))
+    mp_launches, mp_by_shape = model_parallelism(smi)
+    launches.update(mp_launches)
+    print(json.dumps(kernels_line(rows, launches, per_forward, mp_by_shape)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

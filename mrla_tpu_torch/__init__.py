@@ -45,7 +45,11 @@ sources in ``csrc/``) for every TPU kernel it runs:
     and the port's is plain PyTorch too;
   * data parallelism for both trainers (``parallel/``: torchrun's launch
     environment, NCCL on cards and gloo on the CPU, DDP, BN over the
-    global batch, the detection trainer's ``--dp``).
+    global batch, the detection trainer's ``--dp``); the mesh
+    (``parallel/mesh.py``: named axes, a process group a slice), output-
+    channel tensor parallelism (``parallel/sharding.py``), the DeiT GPipe
+    schedule (``parallel/pipeline.py``), data-parallel serving
+    (``serving/sharded.py``) and :func:`dryrun_multichip` (``dryrun.py``).
 
 The serving entries take the JAX package's ``microbatch`` option (and
 ``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by
@@ -71,6 +75,7 @@ from mrla_tpu_torch import (
     utils,
 )
 from mrla_tpu_torch._device import resolve_device
+from mrla_tpu_torch.dryrun import dryrun_multichip
 
 
 def entry(device="cuda"):
@@ -87,5 +92,6 @@ def entry(device="cuda"):
     return serving.resnet_mrlal_forward, (params, x)
 
 
-__all__ = ["ckpt", "data", "detect", "entry", "kernels", "models", "nn",
+__all__ = ["ckpt", "data", "detect", "dryrun_multichip", "entry",
+           "kernels", "models", "nn",
            "ops", "parallel", "resolve_device", "serving", "train"]

@@ -80,6 +80,7 @@ from torch import nn
 
 from mrla_tpu_torch._device import resolve_device
 from mrla_tpu_torch.detect.configs import PRESETS
+from mrla_tpu_torch.parallel import launch
 from mrla_tpu_torch.parallel import (
     data_parallel,
     global_sum,
@@ -88,7 +89,6 @@ from mrla_tpu_torch.parallel import (
     is_main_process,
     rank_device,
     shard_batch,
-    world_size,
 )
 
 
@@ -340,13 +340,14 @@ def train_step(step_loss: nn.Module, opt, batch, rand,
     """One SGD step on ``batch`` (device tensors) through ``step_loss`` (a
     :class:`StepLoss`, or DDP around one); returns the global batch's loss
     terms.  A rank's loss is its rows' share of the global loss (the
-    normalisers are global), so the backward scales it by the world size:
-    DDP then averages the ranks' gradients into the global loss's."""
+    normalisers are global), so the backward scales it by the data group's
+    size (the world): DDP then averages the ranks' gradients into the
+    global loss's."""
     with torch.autocast(batch["image"].device.type, dtype=torch.bfloat16,
                         enabled=bf16):
         total, losses = step_loss(batch, rand)
     opt.zero_grad(set_to_none=True)
-    world = world_size()
+    world = launch.data_size()
     (total * world if world > 1 else total).backward()
     opt.step()
     keys = sorted(losses)

@@ -255,10 +255,11 @@ def mask_loss(mask_logits: torch.Tensor, targets: Mapping[str, torch.Tensor],
 
 def _uniforms(rand: Uniforms, key: str, shape, device) -> torch.Tensor:
     if isinstance(rand, torch.Generator):
-        b, world = shape[0], launch.world_size()
+        b, world = shape[0], launch.data_size()
         u = torch.rand((b * world, *shape[1:]), generator=rand,
                        device=device)
-        return u[launch.rank() * b:(launch.rank() + 1) * b]
+        r = launch.data_rank()
+        return u[r * b:(r + 1) * b]
     u = rand[key]
     if tuple(u.shape) != tuple(shape):
         raise ValueError(f"uniforms[{key!r}] must be {tuple(shape)}, got "

@@ -19,8 +19,10 @@ package) does: ``running = 0.9·running + 0.1·batch``.  ``nn.BatchNorm2d``
 would take the unbiased one, n / (n - 1) times larger.  Under data
 parallelism (a process group of more than one rank) the batch is the
 global batch, as the JAX step's under GSPMD: the per-channel fp32 sum, sum
-of squares and count are all-reduced by a differentiable sum, so the
-backward's two sums are global too.  (``nn.SyncBatchNorm`` refuses CPU
+of squares and count are all-reduced over the data group
+(``parallel/launch.py:data_group``: the world, or inside ``with mesh:``
+the mesh's ``data`` axis) by a differentiable sum, so the backward's two
+sums are global too.  (``nn.SyncBatchNorm`` refuses CPU
 tensors and updates the running variance with the unbiased variance.)
 """
 
@@ -79,9 +81,14 @@ class BatchNorm2d(nn.BatchNorm2d):
                 and self.momentum is not None):
             return super().forward(x)
         self._check_input_dim(x)
-        if launch.world_size() > 1:
+        if self.moment_group()[1] > 1:
             return self._global_batch_norm(x)
         return self._replica_batch_norm(x)
+
+    def moment_group(self):
+        """(group, size) the training moments are summed over: the data
+        group."""
+        return launch.data_group()
 
     def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         """Moments of the global batch: E[x] and E[x²] - E[x]² from the
@@ -90,7 +97,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         n = torch.full((1,), float(x.numel() // x.shape[1]),
                        device=x.device)
         sums = launch.all_reduce_sum(torch.cat(
-            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]))
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]),
+            *self.moment_group())
         c = x.shape[1]
         mean = sums[:c] / sums[-1]
         var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)

@@ -17,8 +17,8 @@ The backward is the JAX op's VJP.  It saves only ``out``, ``identity``,
 autograd call; the depthwise conv's through autograd's own conv backward
 (``aten.convolution_backward``), without running the conv's forward again.
 
-Under data parallelism (a process group of more than one rank) the
-moments are the global batch's, as the module path's BN takes them
+Under data parallelism (a data group of more than one rank,
+``parallel/launch.py:data_group``) the moments are the global batch's, as the module path's BN takes them
 (``models/common.py:BatchNorm2d``): the forward all-reduces the per-channel
 sum, sum of squares and count, and the backward the per-channel
 reductions that its input gradient reads (dβ, dγ, and the cotangents of
@@ -75,7 +75,7 @@ def _global_stats(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     """(mean, biased var, count) of the global batch; the batch's own
     (two-pass) at world 1."""
     n = float(m.numel() // m.shape[-1])
-    if launch.world_size() == 1:
+    if launch.data_size() == 1:
         return (*_stats(m), n)
     mf = m.float()
     c = m.shape[-1]

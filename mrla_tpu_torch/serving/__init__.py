@@ -20,9 +20,11 @@ from mrla_tpu_torch.serving.resnet_mrlal import (
     prepare_inference_params,
     resnet_mrlal_forward,
 )
+from mrla_tpu_torch.serving.sharded import make_sharded_forward
 from mrla_tpu_torch.serving.tail_routes import resnet_mrlal_tail_forward
 
 __all__ = ["attach_stage4", "deit_forward", "detect_forward",
+           "make_sharded_forward",
            "prepare_deit_inference_params", "prepare_detect_params",
            "precast_forward", "prepare_inference_params",
            "prepare_mrlab_inference_params",

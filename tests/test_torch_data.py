@@ -38,6 +38,7 @@ from mrla_tpu_torch.train.steps import eval_step
 from tests.test_cifar_distill import _write_fake_cifar100
 from tests.test_inat import _write_fixture
 from tests.test_torch_resnet_family import numpy_variables
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 SIZES = [(40, 50), (60, 48), (37, 64), (48, 48)]
 

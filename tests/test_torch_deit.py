@@ -31,6 +31,7 @@ from mrla_tpu_torch.models import (
 )
 from mrla_tpu_torch.serving import deit_forward, prepare_deit_inference_params
 from mrla_tpu_torch.testing import spread_deit_weights
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 SMALL = dict(embed_dim=64, depth=2, num_heads=2, num_classes=10)

@@ -34,6 +34,7 @@ from mrla_tpu_torch.kernels import (
     pack_tail_params,
 )
 from mrla_tpu_torch.models import MRLALightTokenModule
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 
 def _setup(b=16, n=197, c=384, dim_perhead=16, seed=0):

@@ -28,6 +28,7 @@ from mrla_tpu_torch.detect import anchors, bbox, two_stage
 from mrla_tpu_torch.detect.fpn import FPN
 from mrla_tpu_torch.models import ResNetMRLALight
 from mrla_tpu_torch.testing import spread_detector_weights
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 KW = dict(layers=(1, 1, 1, 1), num_classes=4, rpn_nms_pre=100,

@@ -182,7 +182,7 @@ def test_retinanet_two_rank_step_is_one_rank_on_the_global_batch(dp):
     """RetinaNet with BN on batch statistics: the 2-rank step's loss terms,
     num_pos (exact) and gradients against the port's 1-rank step on the
     global batch; a per-rank avg_factor fails."""
-    want = checks.detection_step(dp["spec"]["retinanet"])
+    want = checks.detection_step(dp["spec"]["retinanet"], device="cpu")
     sound = dp["ranks"][0]["retinanet"]["global"]
     assert sound["terms"]["num_pos"] == want["terms"]["num_pos"] > 0
     for k in ("loss", "loss_cls", "loss_bbox"):

@@ -38,6 +38,7 @@ from tests.test_torch_resnet_family import (
     jax_forwards,
     numpy_variables,
 )
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 LOGITS = dict(rtol=2e-3, atol=3e-4)
 STATS = dict(rtol=1e-4, atol=1e-5)

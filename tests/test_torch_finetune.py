@@ -20,6 +20,7 @@ from mrla_tpu_torch.ckpt import read_model_state_dict
 from mrla_tpu_torch.models import create_model
 from mrla_tpu_torch.train import cli
 from mrla_tpu_torch.utils import finetune
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -44,6 +44,7 @@ from mrla_tpu_torch.serving import (
     resnet_mrlab_forward,
 )
 import mrla_tpu_torch.serving.resnet_mrlab as engine
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 2e-3, 3e-4

@@ -181,7 +181,7 @@ def test_global_batch_norm_at_two_ranks_is_one_rank_on_the_global_batch(dp):
     """A stack of BatchNorm2d at 2 ranks against 1 rank on the global
     batch: the output, the input gradient, the weight and bias gradients,
     the running statistics (the biased rule); per-replica BN fails."""
-    want = checks.bn_step(dp["spec"]["bn"])
+    want = checks.bn_step(dp["spec"]["bn"], device="cpu")
     bn_buffers = want["buffers"]
 
     def errors(variant):
@@ -224,7 +224,8 @@ def test_two_rank_fused_epilogue_and_remat_steps(dp):
     """The fused train epilogue's step at 2 ranks against 1 rank on the
     global batch; the remat step against the plain one at 2 ranks, the
     running statistics updated once."""
-    want = checks.classification_step(dp["spec"]["cls"], "fused")
+    want = checks.classification_step(dp["spec"]["cls"], "fused",
+                                      device="cpu")
     got = dp["ranks"][0]["cls"]["fused"]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
     assert _within(got["state"], want["state"], "fused")

@@ -49,6 +49,7 @@ from mrla_tpu_torch.serving import (
 )
 from tests.test_torch_efficientnet import NO_DROP, _calibrated
 from tests.test_torch_resnet_family import images, numpy_variables
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 FP32 = dict(rtol=2e-3, atol=3e-4)
 BF16 = dict(rtol=0.05, atol=0.08)

@@ -31,6 +31,7 @@ from mrla_tpu_torch.ckpt import state_dict_from_jax
 from mrla_tpu_torch.models import ResNet, ResNetMRLABase
 from mrla_tpu_torch.nn import ECALayer, SELayer
 from mrla_tpu_torch.serving import prepare_mrlab_inference_params
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 OPS = dict(rtol=1e-5, atol=1e-6)
 LOGITS = dict(rtol=2e-3, atol=3e-4)

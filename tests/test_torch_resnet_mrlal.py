@@ -25,6 +25,7 @@ from mrla_tpu_torch.serving import (
     prepare_inference_params,
     resnet_mrlal_forward,
 )
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 

@@ -29,6 +29,7 @@ from mrla_tpu_torch.detect.roi_align import (
     roi_geometry,
 )
 from mrla_tpu_torch.kernels import roi_align_patch
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 SIZES = [(64, 88), (32, 44), (16, 22), (8, 11)]
 STRIDES = (4, 8, 16, 32)

@@ -36,6 +36,7 @@ from mrla_tpu_torch.detect.roi_align import (
     roi_geometry,
 )
 from test_torch_roialign import CANVAS, SIZES, STRIDES, _feats, _rois, _valid
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 ROI_FP32_TERMS = 4 * 7 * 7
 

@@ -35,6 +35,7 @@ from mrla_tpu_torch.serving import (
     two_stage_detections,
 )
 from mrla_tpu_torch.testing import spread_detector_weights
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 LAYERS = (1, 1, 1, 1)

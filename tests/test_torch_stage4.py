@@ -31,6 +31,7 @@ from mrla_tpu_torch.serving import (
 import mrla_tpu_torch.serving.resnet_mrlal as eng
 
 from test_torch_resnet_mrlal import _flax_variables
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 REL = 1e-4

@@ -46,6 +46,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 from exp_tail import forward as exp_tail_forward  # noqa: E402
 from test_torch_resnet_mrlal import _flax_variables  # noqa: E402
+from tests.torch_fixtures import two_threads  # noqa: E402,F401 (autouse)
 
 RTOL, ATOL = 2e-3, 3e-4
 PX, BATCH, CLASSES = 32, 2, 10

@@ -49,6 +49,7 @@ from mrla_tpu_torch.kernels import (
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 from exp_boundary import hwbc_copy as j_hwbc_copy  # noqa: E402
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 def _tail_args(rng, b, h, w, c, dtype=np.float32):
     """z, identity and the tail's vectors, numpy, as the JAX tests draw

@@ -43,6 +43,7 @@ from mrla_tpu_torch.train import (
     train_step,
 )
 from mrla_tpu_torch.train import cli, optim, schedules
+from tests.torch_fixtures import two_threads  # noqa: F401 (autouse)
 
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=5e-4, atol=5e-5)

@@ -1,5 +1,5 @@
-"""Fixtures shared by the port's detection tests; a test module imports
-the ones it wants into its namespace."""
+"""Fixtures shared by the port's tests; a test module imports the ones it
+wants into its namespace."""
 
 import pytest
 import torch
@@ -9,7 +9,8 @@ import torch
 def two_threads():
     """Small shapes: two torch threads.  Under the suite's parallel workers
     (more threads than cores) OpenMP regions of many threads wait on each
-    other; a detection file then took ten times its time alone."""
+    other; a detection file then took ten times its time alone, and the
+    model files 10 to 28 times theirs."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
