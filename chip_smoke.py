@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
      card, in bf16, at every shape the main paths (224 px, batch 128) give
      it, and the epilogue and mega-tail also at every shape the detection
-     path (800 x 1344, batch 8) gives them, with its time (CUDA events),
+     path (800 x 1344, batch 8) gives them, and the epilogue at the two
+     int8-engine shapes no other path gives it ([64,56,56,256] and
+     [64,28,28,512], chains of 64), with its time (CUDA events),
      its bound and the plain version's time; the DeiT token tail also at
      the other two published widths and at a batch of 3, and its cls rows
      with ot doubled; the block tail from z (the HWBC block tail's kernel
@@ -268,11 +270,49 @@ Phases, in order; any failure raises and the script exits non-zero:
      step against world 1; (d) dryrun_multichip(4, backend="gloo") on the
      card: its five lines and finite losses; the phase's wall time beside
      MP_WALL_S.  No earlier phase is cut for it;
+  8h. the serving surface (serving/server.py, quant.py, cli.py, hub.py,
+     utils/; SURF_WALL_S is the target): (a) the batching daemon
+     (build_server, resnet50_mrlal, 224 px, batch 128, bf16, 127.0.0.1
+     port 0) under 256 single-image npy requests from 16 client threads,
+     one JSON request of 3 images and one ?topk=5: every response against
+     the engine's own forward of its image (bitwise or not, printed;
+     logit_error within LOGIT_ERROR_TOL), /stats against the requests
+     sent, the launches exactly the main path's table (7 mega-tail + 9
+     epilogue) times the batches flushed, requests/s, p50 / p99 latency
+     and the padded share; the responders given the batch's rows shifted
+     by one (the injected fault) must fail the check; (b) the int8 engine
+     (prepare_quant_params on 128 seeded images; int8 and int8-fast at
+     224 px, batch 128, chains of 64): the epilogue's launches exactly 32
+     a forward by shape (QUANT_EPILOGUE_SHAPES); every block against the
+     fp32 fake-quant reference on the card fed the engine's own block
+     input (fake_quant_block: kernels dequantised with scales taken from
+     the BN-folded kernels, not the tree's multipliers), max |Δ| over max
+     |out| within QUANT_LOGIT_TOL, the end-to-end gap printed beside it;
+     a scale fault (inv_a1 in place of a1 in block 0's conv2 multiplier)
+     and a requantisation moved before conv2's ReLU must each fail it;
+     top-1 against the bf16 engine on its 8 clearest images (held for
+     int8, printed for the lossy int8-fast); img/s of int8, int8-fast and
+     the bf16 engine in turns; (c) the detections daemons at 800 x 1344,
+     batch 8, one batch each: RetinaNet and faster (and mask, ?masks=1)
+     answering JSON equal to the direct call on the same batch, launches
+     by shape (RoIAlign 1 a batch, 2 with masks; the trunk's table; none
+     for RetinaNet), masks of [n, 28, 28]; the pyramid daemon's npz
+     levels bitwise detect_forward's; (d) the eval CLI (serving/cli.py
+     main) on phase 8d's JPEG tree with --limit 256 for resnet50_mrlal,
+     resnet50_mrlab, resnet50_se, resnet50_la_eq4,
+     deit_mrlal_small_patch16_224 and resnet50_mrlal --quant int8, each
+     from a seeded --torch checkpoint: the engine JAX's _pick_engine
+     names, images 256, acc1 / acc5 equal to a direct loop over the same
+     engine, the launches per forward by shape (the token tail 12 at
+     (128, 197, 384)); (e) hub.load("resnet50_mrlal") on the card (finite
+     logits), profile_model of resnet50_mrlal and deit_mrlal_small, the
+     log tools on phase 8d's ResNet run directory;
   9. one JSON line listing each ported kernel, its per-forward (per-step
      for the backward) numbers weighted by the launches counted by shape on
      its main path, and its launches on the other paths (the DDP training
-     run of 8f and the sharded-serving ranks of 8g among them, the latter
-     also by shape);
+     run of 8f, the sharded-serving ranks of 8g and phase 8h's paths among
+     them, 8g's and the int8 engine's also by shape), and the rows of the
+     shapes only other paths give it;
  10. the nvidia-smi line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -313,6 +353,14 @@ LOGIT_ERROR_TOL = 0.05
 EPILOGUE_SHAPES = {
     (BATCH, 14, 14, 1024): ("stage3", 6),
     (BATCH, 7, 7, 2048): ("stage4", 3),
+}
+# The int8 engine (phase 8h) serves the batch in chains of 64 and runs the
+# epilogue after every block; phase 3 holds and times it also at the two
+# of those shapes that no other path gives it (launches per int8 forward).
+QUANT_MICROBATCH = 64
+QUANT_NEW_SHAPES = {
+    (QUANT_MICROBATCH, 56, 56, 256): ("int8 stage1", 6),
+    (QUANT_MICROBATCH, 28, 28, 512): ("int8 stage2", 8),
 }
 # With use_stage4=True the stage kernel, keyed (B, CIN, C1, C), takes the
 # place of stage 4's three epilogues.
@@ -551,8 +599,8 @@ def check_kernels(lib):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"epilogue": {}, "megatail": {}}
-    for shape, (stage, _) in {**EPILOGUE_SHAPES,
-                              **DET_EPILOGUE_SHAPES}.items():
+    for shape, (stage, _) in {**EPILOGUE_SHAPES, **DET_EPILOGUE_SHAPES,
+                              **QUANT_NEW_SHAPES}.items():
         b, h, w, c = shape
         a = tail_inputs(gen, shape)
         y = fused_epilogue(**a)
@@ -1873,7 +1921,8 @@ def serve_detect(smi: str):
 
     t0 = time.perf_counter()
     # one seeded Mask R-CNN: the faster preset runs its box path
-    model = detector_serving_model(0, MASK_PRESET)
+    model = seeded("mask_rcnn", lambda: detector_serving_model(0,
+                                                              MASK_PRESET))
     params = prepare_detect_params(model, dtype=torch.bfloat16,
                                    device="cuda")
     gen = torch.Generator().manual_seed(3)
@@ -2989,14 +3038,16 @@ def trace_kernels(path: str) -> int:
 
 
 def real_recipe(name: str, root: str, found: dict, smi: str,
-                profile_dir=None) -> dict:
+                profile_dir=None, run_dir=None) -> dict:
     """(d), (e): train/cli.py main for one epoch of the real tree, then
     validation; the kernel counts set to 0 just before and read just
-    after."""
+    after.  The run directory is ``run_dir`` (kept), else a temporary
+    one."""
     from mrla_tpu_torch.train import cli
 
     counters = all_counters()
-    with tempfile.TemporaryDirectory() as out:
+    with (contextlib.nullcontext(run_dir) if run_dir
+          else tempfile.TemporaryDirectory()) as out:
         argv = REAL_RECIPES[name] + [
             "--data", root, "--num-classes", str(REAL_CLASSES),
             "--workers", str(REAL_WORKERS), "--print-freq", "1000",
@@ -3158,36 +3209,38 @@ def check_teacher_resume(work: str) -> None:
         raise AssertionError(f"teacher-resume losses {res['loss']}")
 
 
-def train_real_data(smi: str) -> None:
-    """Phase 8d, classification training on real data."""
+def train_real_data(smi: str, work: str) -> None:
+    """Phase 8d, classification training on real data, in ``work``; the
+    JPEG tree (``work/tree``) and the ResNet recipe's run directory
+    (``work/run_resnet``) stay there for phase 8h."""
     t0 = time.perf_counter()
     counters = all_counters()
     for c in counters.values():
         c.reset()
     found = decoders_text()
-    with tempfile.TemporaryDirectory() as work:
-        root = os.path.join(work, "tree")
-        t1 = time.perf_counter()
-        write_jpeg_tree(root)
-        print(f"jpeg tree: {REAL_CLASSES} x {REAL_PER_CLASS} train, "
-              f"{REAL_VAL} val images of {REAL_SIZES} (h, w) in "
-              f"{time.perf_counter() - t1:.1f} s")
-        check_decoders(root, found, smi)
-        prof = os.path.join(work, "profile")
-        real_recipe("resnet", root, found, smi, profile_dir=prof)
-        from mrla_tpu_torch.train import cli
+    root = os.path.join(work, "tree")
+    t1 = time.perf_counter()
+    write_jpeg_tree(root)
+    print(f"jpeg tree: {REAL_CLASSES} x {REAL_PER_CLASS} train, "
+          f"{REAL_VAL} val images of {REAL_SIZES} (h, w) in "
+          f"{time.perf_counter() - t1:.1f} s")
+    check_decoders(root, found, smi)
+    prof = os.path.join(work, "profile")
+    real_recipe("resnet", root, found, smi, profile_dir=prof,
+                run_dir=os.path.join(work, "run_resnet"))
+    from mrla_tpu_torch.train import cli
 
-        trace = os.path.join(prof, cli.TRACE_NAME)
-        n_kernels = trace_kernels(trace)
-        print(f"profile of steps {cli.PROFILE_STEPS[0]}-"
-              f"{REAL_CLASSES * REAL_PER_CLASS // REAL_BATCH - 1}: "
-              f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB, {n_kernels} CUDA "
-              f"kernel events")
-        if not n_kernels:
-            raise AssertionError("the profile holds no CUDA kernel event")
-        real_recipe("deit", root, found, smi)
-        check_finetune(root, work)
-        check_teacher_resume(work)
+    trace = os.path.join(prof, cli.TRACE_NAME)
+    n_kernels = trace_kernels(trace)
+    print(f"profile of steps {cli.PROFILE_STEPS[0]}-"
+          f"{REAL_CLASSES * REAL_PER_CLASS // REAL_BATCH - 1}: "
+          f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB, {n_kernels} CUDA "
+          f"kernel events")
+    if not n_kernels:
+        raise AssertionError("the profile holds no CUDA kernel event")
+    real_recipe("deit", root, found, smi)
+    check_finetune(root, work)
+    check_teacher_resume(work)
     launches = {k: c.calls for k, c in counters.items()}
     wall = time.perf_counter() - t0
     print(f"real-data training phase: {wall:.1f} s (limit {REAL_WALL_S}); "
@@ -3370,7 +3423,7 @@ def serve_retinanet(smi: str) -> None:
     from mrla_tpu_torch.testing import images, retinanet_serving_model
 
     t0 = time.perf_counter()
-    host_model = retinanet_serving_model(0)
+    host_model = seeded("retinanet", lambda: retinanet_serving_model(0))
     gen = torch.Generator().manual_seed(4)
     host = [images(gen, DET_BATCH, DET_HW) for _ in range(DET_REQUESTS)]
     t1 = time.perf_counter()
@@ -4256,6 +4309,710 @@ def model_parallelism(smi: str) -> tuple:
     return launches
 
 
+# Phase 8h: the serving surface (serving/server.py, serving/quant.py,
+# serving/cli.py, hub.py, utils/).  (a) the batching daemon on
+# resnet50_mrlal (224 px, batch 128, bf16) under SURF_REQUESTS single-image
+# requests from SURF_CLIENTS threads, one JSON request of 3 images and one
+# ?topk=5, every response held to the engine's own forward of the image;
+# the responders given the batch's rows shifted by one (the injected fault)
+# must fail that; (b) the int8 engine (chains of 64: row 1 at the four
+# QUANT_EPILOGUE_SHAPES), both forms, against the fp32 fake-quant
+# reference on the card within QUANT_LOGIT_TOL of the logit scale, two
+# injected faults failing it, top-1 against the bf16 engine; (c) the
+# detections daemons (RetinaNet, faster, mask with ?masks=1) and the
+# pyramid daemon at 800 x 1344, batch 8, one batch each, against the
+# direct calls; (d) the eval CLI on phase 8d's JPEG tree; (e) hub.load,
+# profile_model and the log tools.
+SURF_PATHS = {
+    "daemon": "serving daemon resnet50_mrlal",
+    "int8": "int8 engine resnet50_mrlal",
+    "int8-fast": "int8-fast engine resnet50_mrlal",
+    "retinanet": "detections daemon retinanet_r50mrlal",
+    "faster": "detections daemon faster_rcnn_r50mrlal",
+    "mask": "detections daemon mask_rcnn_r50mrlal",
+    "pyramid": "pyramid daemon faster_rcnn_r50mrlal",
+}
+SURF_CLIENTS, SURF_REQUESTS, SURF_FAULT_REQUESTS = 16, 256, 32
+# row 1's launches per int8 forward at bs128 in chains of 64, by shape
+QUANT_EPILOGUE_SHAPES = {
+    **QUANT_NEW_SHAPES,
+    (QUANT_MICROBATCH, 14, 14, 1024): ("int8 stage3", 12),
+    (QUANT_MICROBATCH, 7, 7, 2048): ("int8 stage4", 6),
+}
+# the int8 logits against the fp32 fake-quant reference, max |Δ| over the
+# reference's max |logit| (tests/test_serving_quant.py's bar)
+QUANT_LOGIT_TOL = 0.02
+QUANT_FAULTS = ("scale", "requant")
+# the eval CLI's runs: arch, extra argv, the engine JAX's _pick_engine names
+CLI_RUNS = [("resnet50_mrlal", [], "mrlal"),
+            ("resnet50_mrlab", [], "mrlab"),
+            ("resnet50_se", [], "precast"),
+            ("resnet50_la_eq4", [], "precast"),
+            (DEIT_ARCH, [], "precast"),
+            ("resnet50_mrlal", ["--quant", "int8"], "mrlal")]
+CLI_LIMIT, CLI_CLASSES = 256, 10
+SURF_WALL_S = 150.0  # the phase's target wall time, printed beside it
+SEEDED: dict = {}  # seeded CPU models shared between phases
+
+
+def seeded(name: str, build):
+    """A seeded CPU model built once (``build()``) and shared."""
+    if name not in SEEDED:
+        SEEDED[name] = build()
+    return SEEDED[name]
+
+
+def _npy(a) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(a))
+    return buf.getvalue()
+
+
+def _post(url: str, body: bytes, ctype: str = "application/x-npy",
+          timeout: float = 300.0) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+@contextlib.contextmanager
+def running(httpd, beng):
+    """Serve in a thread; shut the daemon and its engine down after."""
+    import threading
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        beng.close()
+        thread.join(timeout=10)
+
+
+def warm(beng, shape) -> None:
+    from mrla_tpu_torch.serving.server import _to_host
+
+    with torch.inference_mode():
+        _to_host(beng.fwd(torch.zeros(shape, dtype=beng.input_dtype,
+                                      device=beng.device)))
+
+
+def client_traffic(base: str, x, clients: int):
+    """len(x) single-image npy requests from ``clients`` threads; returns
+    (logits [n, C] fp32, each request's seconds, the wall seconds)."""
+    import threading
+
+    import numpy as np
+
+    n = len(x)
+    out, lat, errors = [None] * n, [0.0] * n, []
+
+    def client(k):
+        try:
+            for i in range(k, n, clients):
+                t = time.perf_counter()
+                body = _post(base + "/predict", _npy(x[i]))
+                lat[i] = time.perf_counter() - t
+                out[i] = json.loads(body)["predictions"][0]
+        except Exception as e:  # raised below, in the phase
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return torch.tensor(np.asarray(out, np.float32)), lat, wall
+
+
+def engine_rows(fwd, x, batch: int) -> torch.Tensor:
+    """The engine's forward of every image of ``x`` (host fp32), in
+    batches padded with their first row, as the daemon pads."""
+    outs = []
+    with torch.inference_mode():
+        for i in range(0, len(x), batch):
+            part = x[i:i + batch]
+            xb = torch.cat([part, part[:1].expand(batch - len(part),
+                                                  *part.shape[1:])])
+            outs.append(fwd(xb.to("cuda", torch.bfloat16)).float().cpu()
+                        [:len(part)])
+    return torch.cat(outs)
+
+
+def surf_daemon(smi: str, model) -> tuple:
+    """(a); returns (launches by kernel, launches by shape)."""
+    import numpy as np
+
+    import mrla_tpu_torch.serving.server as server
+    from mrla_tpu_torch.testing import images
+
+    httpd, beng = server.build_server("resnet50_mrlal", None,
+                                      batch_size=BATCH, image_size=PX,
+                                      port=0, device="cuda", model=model)
+    x = images(torch.Generator().manual_seed(21), SURF_REQUESTS + 4, PX)
+    xn = x.numpy()
+    counters = all_counters()
+    with running(httpd, beng) as base:
+        warm(beng, (BATCH, PX, PX, 3))
+        for c in counters.values():
+            c.reset()
+        got, lat, wall = client_traffic(base, xn[:SURF_REQUESTS],
+                                        SURF_CLIENTS)
+        body = json.dumps({"instances": xn[SURF_REQUESTS:SURF_REQUESTS + 3]
+                           .tolist()}).encode()
+        got_json = torch.tensor(json.loads(_post(
+            base + "/predict", body, "application/json"))["predictions"])
+        topk = json.loads(_post(base + "/predict?topk=5",
+                                _npy(xn[-1:])))["topk"][0]
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+        stats = json.loads(_urlread(base + "/stats"))
+        ref = engine_rows(beng.fwd, x, BATCH)
+        # the injected fault: the responders given the rows shifted by one
+        real = server._to_host
+        server._to_host = lambda out: np.roll(real(out), 1, axis=0)
+        try:
+            bad, _, _ = client_traffic(base, xn[:SURF_FAULT_REQUESTS],
+                                       SURF_CLIENTS)
+        finally:
+            server._to_host = real
+    n_req = SURF_REQUESTS + 3 + 1
+    batches = stats["batches"]
+    print(f"serving surface (a), daemon resnet50_mrlal {PX}px bs{BATCH} "
+          f"bf16, {SURF_CLIENTS} clients: {SURF_REQUESTS} requests in "
+          f"{wall:.3f} s = {SURF_REQUESTS / wall:.1f} requests/s, latency "
+          f"p50 {np.percentile(lat, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(lat, 99) * 1e3:.2f} ms; /stats {stats}: padded "
+          f"share {stats['padded_rows'] / (batches * BATCH):.4f}; launches "
+          f"{launches}, on {smi}")
+    if stats["requests"] != n_req or (
+            stats["padded_rows"] != batches * BATCH - n_req):
+        raise AssertionError(f"daemon /stats {stats}: {n_req} requests sent")
+    want = {k: {} for k in counters}
+    want["megatail"] = {s: n * batches for s, (_, n) in
+                        MEGATAIL_SHAPES.items()}
+    want["epilogue"] = {s: n * batches for s, (_, n) in
+                        EPILOGUE_SHAPES.items()}
+    if by_shape != want:
+        raise AssertionError(f"daemon launches by shape {by_shape} != "
+                             f"{want} ({batches} batches)")
+    rows = torch.cat([got, got_json])
+    want_rows = ref[:SURF_REQUESTS + 3]
+    same = torch.equal(rows, want_rows)
+    err = logit_error(rows, want_rows)
+    bad_err = logit_error(bad, ref[:SURF_FAULT_REQUESTS])
+    top = ref[-1].topk(5).indices.tolist()
+    print(f"serving surface (a): every response against the engine's own "
+          f"forward of its image (batched {BATCH} with row-0 padding): "
+          f"{'bitwise' if same else 'not bitwise'}; logit error {err:.4g} "
+          f"(tol {LOGIT_ERROR_TOL}); the JSON request's 3 rows included; "
+          f"?topk=5 {topk['classes']} against {top}; injected fault "
+          f"(rows shifted by one) logit error {bad_err:.4g}")
+    if not err <= LOGIT_ERROR_TOL:
+        raise AssertionError(f"daemon responses: logit error {err}")
+    if topk["classes"][0] != top[0] or len(topk["classes"]) != 5:
+        raise AssertionError(f"daemon ?topk=5 {topk} against {top}")
+    if bad_err <= LOGIT_ERROR_TOL:
+        raise AssertionError("the row-shift fault passed the daemon check")
+    return launches, {k: {str(list(s)): n for s, n in v.items()}
+                      for k, v in by_shape.items() if v}
+
+
+def _urlread(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read()
+
+
+def _fq(v, inv):
+    """Quantise to the int8 grid, kept in fp32."""
+    return (v.float() * inv).round().clamp(-127.0, 127.0)
+
+
+def _fq_conv(t, kq, sw, b, stride=1):
+    """fp32 conv of ``t`` with the int8 kernel dequantised (kq · sw),
+    laid out back to OIHW."""
+    from mrla_tpu_torch.ops.common import conv2d_nhwc
+
+    co, kk = kq.shape
+    cin = t.shape[-1]
+    k = math.isqrt(kk // cin)
+    w = (kq.float() * sw[:, None]).reshape(co, k, k, cin)
+    return conv2d_nhwc(t, w.permute(0, 3, 1, 2).contiguous(), b,
+                       stride=stride)
+
+
+def kernel_scales(model) -> list:
+    """Each block's per-output-channel kernel scales sw = absmax / 127 of
+    its BN-folded bf16 kernels (``prepare_inference_params``), taken apart
+    from the int8 tree so that the reference does not read its m."""
+    from mrla_tpu_torch.serving import prepare_inference_params
+
+    sp = prepare_inference_params(model, device="cuda")
+    return [{ci: p[f"k{ci}"].float().abs().amax(dim=(1, 2, 3))
+             .clamp_min(1e-12) / 127.0 for ci in "123d" if f"k{ci}" in p}
+            for p in sp["blocks"]]
+
+
+def fake_quant_block(p: dict, sw: dict, yin: torch.Tensor, stride: int,
+                     quant_residual: bool, last: bool) -> torch.Tensor:
+    """One block of the fp32 fake-quant reference
+    (tests/test_serving_quant.py:_fake_quant_reference's construction, in
+    both residual forms) on the block's input as the engine carries it:
+    int8 values under ``quant_residual`` (returns the next block's int8
+    values, or fp32 y after the last block), else the bf16 stream (returns
+    bf16 y).  fp32 convolutions on the dequantised int8 tensors and
+    kernels (kq · sw, ``kernel_scales``: the tree's dequantisation
+    multipliers m are not read), the plain epilogue."""
+    from mrla_tpu_torch.kernels import mrla_light_epilogue_reference
+
+    heads = p["lam"].shape[0] // 32
+    a_in, a1, a2 = p["a_in"], 1.0 / p["inv_a1"], 1.0 / p["inv_a2"]
+    xin = (yin.float() * a_in if quant_residual
+           else _fq(yin, 1.0 / a_in) * a_in)
+    out1 = _fq_conv(xin, p["k1q"], sw["1"], p["b1"]).relu()
+    out2 = _fq_conv(_fq(out1, p["inv_a1"]) * a1, p["k2q"], sw["2"],
+                    p["b2"], stride).relu()
+    z = _fq_conv(_fq(out2, p["inv_a2"]) * a2, p["k3q"], sw["3"], p["b3"])
+    if "kdq" in p:
+        identity = _fq_conv(xin, p["kdq"], sw["d"], p["bd"], stride)
+    else:
+        identity = xin if quant_residual else yin.float()
+    idb = identity.to(torch.bfloat16)
+    out = ((z + identity).relu().to(torch.bfloat16) if quant_residual
+           else (z.to(torch.bfloat16) + idb).relu())
+    y = mrla_light_epilogue_reference(
+        out.contiguous(), idb.contiguous(), p["wq"], p["wk"], p["wv"],
+        p["lam"], p["bn_scale"], p["bn_bias"], heads)
+    if not quant_residual:
+        return y.to(torch.bfloat16)
+    return y.float() if last else _fq(y, p["inv_ay"])
+
+
+def fake_quant_reference(qp: dict, sws: list, x: torch.Tensor,
+                         quant_residual: bool,
+                         layers=(3, 4, 6, 3)) -> torch.Tensor:
+    """The fake-quant reference end to end (fp32 stem, each block on the
+    reference's own previous output): logits fp32."""
+    import mrla_tpu_torch.serving.quant as q
+
+    strides, _ = q._strides_for(layers)
+    with torch.inference_mode():
+        stem = {k: v.float() for k, v in qp["stem"].items()}
+        y = q._stem(x.float(), stem)
+        y = _fq(y, qp["inv_a_stem"]) if quant_residual else y
+        blocks = qp["blocks"]
+        for i, (p, sw, stride) in enumerate(zip(blocks, sws, strides)):
+            y = fake_quant_block(p, sw, y, stride, quant_residual,
+                                 i == len(blocks) - 1)
+        return q._head(qp, y)
+
+
+def quant_blockwise(qp: dict, sws: list, x: torch.Tensor,
+                    quant_residual: bool, layers=(3, 4, 6, 3)) -> list:
+    """The int8 engine's blocks (the module's own functions, so a patched
+    block is the one checked) against ``fake_quant_block`` fed the same
+    input, the engine's own: each block's max |Δ| over the reference's max
+    |out|, then the logits' (the head on both final maps).  Fed the
+    engine's input, a block's knife-edge flips (a value on a rounding
+    boundary landing one step apart) do not compound over the blocks."""
+    import mrla_tpu_torch.serving.quant as q
+
+    strides, _ = q._strides_for(layers)
+    errs = []
+    rel = lambda got, ref: ((got.float() - ref.float()).abs().max()
+                            / ref.float().abs().max()).item()
+    with torch.inference_mode():
+        y = q._stem(x.to(qp["stem"]["k"].dtype), qp["stem"])
+        yin = q._quant(y, qp["inv_a_stem"]) if quant_residual else y
+        blocks = qp["blocks"]
+        for i, (p, sw, stride) in enumerate(zip(blocks, sws, strides)):
+            heads, last = p["lam"].shape[0] // 32, i == len(blocks) - 1
+            got = (q._qblock(yin, p, stride, heads, last, False)
+                   if quant_residual else
+                   q._qblock_bf16res(yin, p, stride, heads))
+            ref = fake_quant_block(p, sw, yin, stride, quant_residual, last)
+            errs.append(rel(got, ref))
+            yin = got
+        errs.append(rel(q._head(qp, got), q._head(qp, ref)))
+    return errs
+
+
+def faulty_blockwise(qp: dict, sws: list, x: torch.Tensor,
+                     kind: str) -> list:
+    """``quant_blockwise`` of the int8 engine (the default form) with one
+    injected fault: ``scale``, block 0's conv2 dequantised with inv_a1 in
+    place of a1; ``requant``, every block's conv3 input requantised from
+    out2 before its ReLU."""
+    import mrla_tpu_torch.serving.quant as q
+
+    if kind == "scale":
+        b0 = dict(qp["blocks"][0])
+        b0["m2"] = b0["m2"] * b0["inv_a1"] ** 2  # (a1 · sw) -> inv_a1 · sw
+        return quant_blockwise({**qp, "blocks": [b0] + qp["blocks"][1:]},
+                               sws, x, False)
+    qconv = q._qconv
+
+    def block(y, p, stride, heads):  # the engine's block, one line moved
+        yq = q._quant(y, 1.0 / p["a_in"])
+        out1 = qconv(yq, p["k1q"], p["m1"], p["b1"]).relu_()
+        q1 = q._quant(out1, p["inv_a1"])
+        pre2 = qconv(q1, p["k2q"], p["m2"], p["b2"], stride=stride)
+        q2 = q._quant(pre2, p["inv_a2"])  # the fault: before the ReLU
+        z = qconv(q2, p["k3q"], p["m3"], p["b3"])
+        if "kdq" in p:
+            identity = qconv(yq, p["kdq"], p["md"], p["bd"],
+                             stride=stride).to(torch.bfloat16)
+        else:
+            identity = y.to(torch.bfloat16)
+        out = (z.to(torch.bfloat16) + identity).relu_()
+        return q._epilogue(out, identity, p, heads).to(torch.bfloat16)
+
+    saved = q._qblock_bf16res
+    q._qblock_bf16res = block
+    try:
+        return quant_blockwise(qp, sws, x, False)
+    finally:
+        q._qblock_bf16res = saved
+
+
+def surf_int8(smi: str, model) -> tuple:
+    """(b); returns (launches by path, launches by path and shape)."""
+    from mrla_tpu_torch.serving import (
+        prepare_inference_params,
+        resnet_mrlal_forward,
+    )
+    from mrla_tpu_torch.serving.quant import (
+        prepare_quant_params,
+        resnet_mrlal_quant_forward,
+    )
+    from mrla_tpu_torch.testing import images
+
+    gen = torch.Generator().manual_seed(22)
+    t0 = time.perf_counter()
+    qp = prepare_quant_params(model, images(gen, BATCH, PX).cuda(),
+                              device="cuda")
+    torch.cuda.synchronize()
+    print(f"serving surface (b): prepare_quant_params on {BATCH} seeded "
+          f"images in {time.perf_counter() - t0:.2f} s")
+    batches = [images(gen, BATCH, PX).cuda() for _ in range(2)]
+    sws = kernel_scales(model)
+    params = prepare_inference_params(model, device="cuda")
+    bf16 = lambda xb: resnet_mrlal_forward(params, xb)
+    with torch.inference_mode():
+        ref_bf16 = bf16(batches[0]).float().cpu()
+    want = {k: {} for k in all_counters()}
+    want["epilogue"] = {s: n for s, (_, n) in QUANT_EPILOGUE_SHAPES.items()}
+    launches, by_shape, forwards = {}, {}, {}
+    for form, qres in (("int8", False), ("int8-fast", True)):
+        path = SURF_PATHS[form]
+        fwd = (lambda r: lambda xb: resnet_mrlal_quant_forward(
+            qp, xb, quant_residual=r))(qres)
+        forwards[form] = fwd
+        outs, launches[path], per_forward = counted(
+            fwd, batches, path, want, desc=f"{PX}px bs{BATCH} int8")
+        by_shape[path] = {"epilogue": {
+            str(list(s)): int(n * len(batches))
+            for s, n in per_forward["epilogue"].items()}}
+        got = outs[0].float().cpu()
+        errs = quant_blockwise(qp, sws, batches[0], qres)
+        e2e = fake_quant_reference(qp, sws, batches[0], qres).cpu()
+        e2e_err = (got - e2e).abs().max().item() / e2e.abs().max().item()
+        top2 = ref_bf16.topk(2, dim=-1).values
+        pick = (top2[:, 0] - top2[:, 1]).argsort(descending=True)[:8]
+        agree = torch.equal(got[pick].argmax(-1), ref_bf16[pick].argmax(-1))
+        print(f"serving surface (b), {path} {PX}px bs{BATCH} (chains of "
+              f"{QUANT_MICROBATCH}): against the fp32 fake-quant reference "
+              f"on the card fed each block's own input, max|Δ|/max|out| by "
+              f"block {[round(e, 5) for e in errs[:-1]]}, the logits' "
+              f"{errs[-1]:.4g} (tol {QUANT_LOGIT_TOL} each); end to end "
+              f"(the reference on its own outputs, flips compounding over "
+              f"16 blocks) {e2e_err:.4g}; against the bf16 engine top-1 on "
+              f"its 8 clearest images {got[pick].argmax(-1).tolist()} vs "
+              f"{ref_bf16[pick].argmax(-1).tolist()}, top-1 agrees on "
+              f"{(got.argmax(-1) == ref_bf16.argmax(-1)).sum().item()}/"
+              f"{BATCH}, logit error {logit_error(got, ref_bf16):.4g}")
+        if not max(errs) <= QUANT_LOGIT_TOL:
+            raise AssertionError(f"{path}: {errs} against the fake-quant "
+                                 "reference")
+        # int8-fast carries the residual stream int8: lossy by design
+        # (serving/quant.py), its top-1 is printed and not held
+        if not agree and not qres:
+            raise AssertionError(f"{path}: top-1 differs from the bf16 "
+                                 "engine on its clearest images")
+    for kind in QUANT_FAULTS:
+        errs = faulty_blockwise(qp, sws, batches[0], kind)
+        print(f"serving surface (b), injected fault {kind}: max|Δ|/max|out|"
+              f" {max(errs):.4g} at block {errs.index(max(errs))} (must "
+              f"exceed {QUANT_LOGIT_TOL})")
+        if max(errs) <= QUANT_LOGIT_TOL:
+            raise AssertionError(f"int8 fault {kind} passed the check")
+    for form in ("int8", "int8-fast", "bf16", "bf16", "int8-fast", "int8"):
+        throughput(forwards.get(form, bf16), batches,
+                   SURF_PATHS.get(form, "resnet50_mrlal bf16 engine"), smi,
+                   desc=f"{PX}px bs{BATCH} {form}")
+    return launches, by_shape
+
+
+def surf_detections(smi: str) -> dict:
+    """(c); returns the launches by path."""
+    import copy
+    import io
+
+    import numpy as np
+
+    import mrla_tpu_torch.serving.server as server
+    from mrla_tpu_torch.serving import detect_forward, prepare_detect_params
+    from mrla_tpu_torch.testing import (
+        detector_serving_model,
+        images,
+        retinanet_serving_model,
+    )
+
+    t0 = time.perf_counter()
+    det = seeded("mask_rcnn", lambda: detector_serving_model(0, MASK_PRESET))
+    retina = copy.deepcopy(seeded("retinanet",
+                                  lambda: retinanet_serving_model(0)))
+    x = images(torch.Generator().manual_seed(23), DET_BATCH, DET_HW)
+    print(f"serving surface (c): seeded detectors in "
+          f"{time.perf_counter() - t0:.1f} s")
+    body, shape = _npy(x.numpy()), (DET_BATCH, *DET_HW, 3)
+    counters = all_counters()
+    roi = {"faster": {ROI: 1 for ROI in ROI_SHAPES},
+           "mask": {**{s: 1 for s in ROI_SHAPES},
+                    **{s: 1 for s in MASK_ROI_SHAPES}}}
+    trunk = {"megatail": {s: n for s, (_, n) in DET_MEGATAIL_SHAPES.items()},
+             "epilogue": {s: n for s, (_, n) in DET_EPILOGUE_SHAPES.items()}}
+    launches = {}
+    for kind, preset, model in (("retinanet", RETINA_PRESET, retina),
+                                ("faster", DET_PRESET, det),
+                                ("mask", MASK_PRESET, det)):
+        path = SURF_PATHS[kind]
+        httpd, beng = server.build_detections_server(
+            preset, model, batch_size=DET_BATCH, image_hw=DET_HW, port=0,
+            device="cuda")
+        with running(httpd, beng) as base:
+            warm(beng, shape)
+            for c in counters.values():
+                c.reset()
+            got = json.loads(_post(base + "/predict?masks=1", body))[
+                "detections"]
+            torch.cuda.synchronize()
+            launches[path] = {k: c.launches for k, c in counters.items()}
+            by = {k: dict(c.by_shape) for k, c in counters.items()}
+            with torch.inference_mode():
+                direct = server._to_host(beng.fwd(
+                    x.to("cuda", torch.bfloat16)))
+        want = [server.detections_json(tuple(o[i] for o in direct), True)
+                for i in range(DET_BATCH)]
+        n_det = [len(d["boxes"]) for d in got]
+        masks = [np.asarray(d.get("masks", [])).shape for d in got]
+        print(f"serving surface (c), {path} {DET_HW[0]}x{DET_HW[1]} "
+              f"bs{DET_BATCH} bf16, one batch: JSON equal to the direct "
+              f"call {got == want}; detections per image {n_det}; masks "
+              f"{masks[:2]}..; launches {launches[path]}")
+        if got != want:
+            raise AssertionError(f"{path}: JSON differs from the direct call")
+        if min(n_det) == 0:
+            raise AssertionError(f"{path}: an image without a detection")
+        want_by = ({k: {} for k in counters} if kind == "retinanet" else
+                   {**{k: {} for k in counters}, **trunk,
+                    "roi_align": roi[kind]})
+        if by != want_by:
+            raise AssertionError(f"{path}: launches {by} != {want_by}")
+        if kind == "mask":
+            if any(m != (n, 28, 28) for m, n in zip(masks, n_det)):
+                raise AssertionError(f"{path}: masks {masks}")
+        elif any("masks" in d for d in got):
+            raise AssertionError(f"{path}: masks without a mask head")
+        del beng, httpd
+    path = SURF_PATHS["pyramid"]
+    httpd, beng = server.build_detect_server(
+        DET_PRESET, det, batch_size=DET_BATCH, image_hw=DET_HW, port=0,
+        device="cuda")
+    with running(httpd, beng) as base:
+        warm(beng, shape)
+        for c in counters.values():
+            c.reset()
+        got = np.load(io.BytesIO(_post(base + "/predict", body)))
+        torch.cuda.synchronize()
+        launches[path] = {k: c.launches for k, c in counters.items()}
+        by = {k: dict(c.by_shape) for k, c in counters.items()}
+    sp = prepare_detect_params(det, device="cuda")
+    want = detect_forward(sp, x.to("cuda", torch.bfloat16))
+    same = [np.array_equal(got[f"level{i}"], w.float().cpu().numpy())
+            for i, w in enumerate(want)]
+    print(f"serving surface (c), {path}: npz levels "
+          f"{[got[f].shape for f in got.files]} bitwise detect_forward's "
+          f"{same}; launches {launches[path]}")
+    if len(got.files) != len(want) or not all(same):
+        raise AssertionError(f"{path}: levels differ from detect_forward")
+    if by != {**{k: {} for k in counters}, **trunk}:
+        raise AssertionError(f"{path}: launches {by}")
+    return launches
+
+
+def surf_cli(work: str, smi: str) -> dict:
+    """(d); returns the launches by path."""
+    import numpy as np
+
+    from mrla_tpu_torch.data.imagefolder import ImageFolder, iterate_batches
+    from mrla_tpu_torch.models import create_model
+    from mrla_tpu_torch.serving import cli
+
+    root = os.path.join(work, "tree")
+    ds = ImageFolder(os.path.join(root, "val"))
+    counters = all_counters()
+    launches = {}
+    for arch, extra, engine in CLI_RUNS:
+        path = f"eval CLI {arch} {' '.join(extra)}".strip()
+        ckpt = os.path.join(work, f"cli_{arch}.pth")
+        if not os.path.exists(ckpt):
+            torch.save({"state_dict": create_model(
+                arch, device="cpu", num_classes=CLI_CLASSES,
+                generator=torch.Generator().manual_seed(5)).state_dict()},
+                ckpt)
+        made = []
+        real = cli.make_engine_forward
+
+        def capture(*a, **kw):
+            fwd = real(*a, **kw)
+            made.append(fwd)
+            return lambda xb: (made.append(None), fwd(xb))[1]
+
+        for c in counters.values():
+            c.reset()
+        cli.make_engine_forward = capture
+        try:
+            t0 = time.perf_counter()
+            res = cli.main(["-a", arch, "--data", root, "--torch", ckpt,
+                            "--limit", str(CLI_LIMIT), "-b", str(BATCH),
+                            "--image-size", str(PX),
+                            "--num-classes", str(CLI_CLASSES),
+                            "--workers", "8", *extra])
+            wall = time.perf_counter() - t0
+        finally:
+            cli.make_engine_forward = real
+        torch.cuda.synchronize()
+        fwd, n_fwd = made[0], len(made) - 1
+        launches[path] = {k: c.launches for k, c in counters.items()}
+        per_forward = {k: {s: n / n_fwd for s, n in c.by_shape.items()}
+                       for k, c in counters.items() if c.launches}
+        top1 = top5 = seen = 0
+        with torch.inference_mode():
+            for b in iterate_batches(ds, np.arange(CLI_LIMIT), BATCH, PX,
+                                     train=False, num_threads=8,
+                                     drop_last=False):
+                logits = fwd(cli._normalized(b["image"], torch.device(
+                    "cuda")).to(torch.bfloat16)).cpu().numpy()
+                order = np.argsort(-logits, axis=-1)[:, :5]
+                top1 += int((order[:, 0] == b["label"]).sum())
+                top5 += int(np.any(order == b["label"][:, None], 1).sum())
+                seen += len(b["label"])
+        direct = (round(100.0 * top1 / seen, 3), round(100.0 * top5 / seen, 3))
+        print(f"serving surface (d), {path}: {json.dumps(res)} in "
+              f"{wall:.1f} s; a direct loop over the same engine: acc1 "
+              f"{direct[0]} acc5 {direct[1]}; {n_fwd} forwards, launches per "
+              f"forward by shape {per_forward}, on {smi}")
+        if (res["engine"], res["images"]) != (engine, CLI_LIMIT):
+            raise AssertionError(f"{path}: {res}")
+        if (res["acc1"], res["acc5"]) != direct:
+            raise AssertionError(f"{path}: accuracies {res} != {direct}")
+        want = {}
+        if extra:
+            want = {"epilogue": {s: n for s, (_, n)
+                                 in QUANT_EPILOGUE_SHAPES.items()}}
+        elif engine == "mrlal":
+            want = {"megatail": {s: n for s, (_, n)
+                                 in MEGATAIL_SHAPES.items()},
+                    "epilogue": {s: n for s, (_, n)
+                                 in EPILOGUE_SHAPES.items()}}
+        elif arch == DEIT_ARCH:
+            want = {"deit_tail": {s: n for s, (_, n)
+                                  in DEIT_TAIL_SHAPES.items()}}
+        want = {k: v for k, v in want.items() if v}
+        if per_forward != want:
+            raise AssertionError(f"{path}: launches per forward "
+                                 f"{per_forward} != {want}")
+    return launches
+
+
+def surf_tools(work: str, smi: str) -> None:
+    """(e)."""
+    from mrla_tpu_torch import hub
+    from mrla_tpu_torch.testing import images
+    from mrla_tpu_torch.utils import logtools, profile_model
+
+    model, sd = hub.load("resnet50_mrlal", device="cuda")
+    with torch.inference_mode():
+        out = model(images(torch.Generator().manual_seed(24), 8, PX).cuda())
+    print(f"serving surface (e), hub.load('resnet50_mrlal') on the card: "
+          f"logits {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}"
+          f", {len(sd)} state_dict entries")
+    if out.shape != (8, 1000) or not torch.isfinite(out).all():
+        raise AssertionError("hub.load: logits not finite")
+    del model, sd
+    for arch in ("resnet50_mrlal", DEIT_ARCH):
+        prof = profile_model(arch, (1, PX, PX, 3), device="cuda")
+        print(f"serving surface (e), profile_model: {json.dumps(prof)} "
+              f"(FlopCounterMode, two FLOPs a multiply-add; "
+              f"utils/flops.py states its band against XLA's count), on "
+              f"{smi}")
+        if not prof["params"] > 0 or not prof["gflops"]:
+            raise AssertionError(f"profile_model {arch}: {prof}")
+    run = os.path.join(work, "run_resnet")
+    best = logtools.best_from_txt(os.path.join(run, "val_acc1.txt"))
+    best_json = logtools.best_from_jsonl(os.path.join(run, "log.txt"))
+    rows = logtools.txt_to_csv(run, os.path.join(work, "run_resnet.csv"))
+    print(f"serving surface (e), logtools on phase 8d's ResNet run: best "
+          f"val_acc1 {best}, best log.txt record {best_json}, {rows} csv "
+          f"rows")
+    if best is None or best_json is None or rows != 1:
+        raise AssertionError("logtools: the run directory did not read")
+
+
+def serving_surface(smi: str, work: str) -> tuple:
+    """Phase 8h; returns (launches by path and kernel, launches by path,
+    kernel and shape)."""
+    from mrla_tpu_torch.testing import serving_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = seeded("resnet50_mrlal", lambda: serving_model(0))
+    daemon, daemon_by_shape = surf_daemon(smi, model)
+    launches = {SURF_PATHS["daemon"]: daemon}
+    by_shape = {SURF_PATHS["daemon"]: daemon_by_shape}
+    torch.cuda.empty_cache()
+    got, got_by_shape = surf_int8(smi, model)
+    launches.update(got)
+    by_shape.update(got_by_shape)
+    torch.cuda.empty_cache()
+    launches.update(surf_detections(smi))
+    torch.cuda.empty_cache()
+    launches.update(surf_cli(work, smi))
+    torch.cuda.empty_cache()
+    surf_tools(work, smi)
+    print(f"serving surface phase 8h: {time.perf_counter() - t0:.1f} s "
+          f"(target {SURF_WALL_S})")
+    return launches, by_shape
+
+
 def kernels_line(rows, launches, per_forward, by_shape=None):
     """One entry per kernel; ms, plain_ms and bound_ms are per forward: each
     shape's time weighted by its launches per forward on the kernel's main
@@ -4325,6 +5082,9 @@ def kernels_line(rows, launches, per_forward, by_shape=None):
             # a PyTorch call computing the same function, where there is one
             "library_ms": (None if None in lib else weighted("library_ms")),
             "per_shape": shapes,
+            # rows held and timed at shapes that only other paths give it
+            "per_shape_on_other_paths": [
+                r for s, r in rows[key].items() if s not in counts],
         })
     return {"kernels": out}
 
@@ -4367,12 +5127,16 @@ def main() -> int:
     train_classify(smi)
     for key, got in zip((launches, per_forward), model_zoo(smi)):
         key.update(got)
-    train_real_data(smi)
-    detection_rest(smi)
-    launches[DP_PATH] = data_parallelism(smi)
-    mp_launches, mp_by_shape = model_parallelism(smi)
-    launches.update(mp_launches)
-    print(json.dumps(kernels_line(rows, launches, per_forward, mp_by_shape)))
+    with tempfile.TemporaryDirectory() as work:
+        train_real_data(smi, work)
+        detection_rest(smi)
+        launches[DP_PATH] = data_parallelism(smi)
+        mp_launches, mp_by_shape = model_parallelism(smi)
+        launches.update(mp_launches)
+        surf_launches, surf_by_shape = serving_surface(smi, work)
+        launches.update(surf_launches)
+    print(json.dumps(kernels_line(rows, launches, per_forward,
+                                  {**mp_by_shape, **surf_by_shape})))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -49,7 +49,12 @@ sources in ``csrc/``) for every TPU kernel it runs:
     (``parallel/mesh.py``: named axes, a process group a slice), output-
     channel tensor parallelism (``parallel/sharding.py``), the DeiT GPipe
     schedule (``parallel/pipeline.py``), data-parallel serving
-    (``serving/sharded.py``) and :func:`dryrun_multichip` (``dryrun.py``).
+    (``serving/sharded.py``) and :func:`dryrun_multichip` (``dryrun.py``);
+  * the serving and tooling surface: the batching daemon
+    (``serving/server.py``), the eval CLI (``serving/cli.py``), the int8
+    post-training-quantized resnet_mrlal engine (``serving/quant.py``,
+    its bf16 epilogue on the epilogue kernel), ``hub.py`` and
+    ``utils/{flops,logtools}.py``.
 
 The serving entries take the JAX package's ``microbatch`` option (and
 ``shared_stem`` on the resnet_mrlal engine); the port serves unsplit by

@@ -321,6 +321,45 @@ def serving_params_from_jax(tree: Mapping, device="cuda",
     return out
 
 
+def quant_params_from_jax(qp: Mapping, device="cuda") -> Dict:
+    """The JAX package's int8 serving tree (``serving/quant.py``
+    ``prepare_quant_params``; numpy or array leaves) -> the port's on
+    ``device``: each int8 HWIO kernel laid out [Cout, kh · kw · Cin] in
+    (dy, dx, cin) order, as the port's im2col product takes it; the stem
+    and fc as ``serving_params_from_jax`` lays them out (bf16), ``wv`` and
+    ``wvq`` [9, C], every scale a fp32 scalar tensor."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return _t(np.asarray(a, np.float32)).to(dev)
+
+    def kernel_q(k):  # [kh, kw, I, O] int8 -> [O, kh * kw * I]
+        k = np.asarray(k, np.int8)
+        return _t(k.transpose(3, 0, 1, 2).reshape(k.shape[-1], -1)).to(dev)
+
+    base = serving_params_from_jax({"stem": qp["stem"], "fc": qp["fc"],
+                                    "blocks": []}, dev)
+    out: Dict = {"stem": base["stem"], "fc": base["fc"],
+                 "inv_a_stem": f32(qp["inv_a_stem"]), "blocks": []}
+    for p in qp["blocks"]:
+        blk: Dict = {}
+        for ci in ("1", "2", "3", "d"):
+            if f"k{ci}q" in p:
+                blk[f"k{ci}q"] = kernel_q(p[f"k{ci}q"])
+                blk[f"m{ci}"] = f32(p[f"m{ci}"])
+                blk[f"b{ci}"] = f32(p[f"b{ci}"])
+        c = np.asarray(p["wv"]).shape[-1]
+        blk["wvq"] = _t(np.asarray(p["wvq"], np.int8).reshape(9, c)).to(dev)
+        blk["wv"] = f32(np.asarray(p["wv"], np.float32).reshape(9, c))
+        for name in ("mv", "wq", "wk", "lam", "bn_scale", "bn_bias"):
+            blk[name] = f32(np.asarray(p[name], np.float32).reshape(-1))
+        for name in ("a_in", "a_out", "inv_a1", "inv_a2", "inv_a_out",
+                     "inv_ay"):
+            blk[name] = f32(p[name])
+        out["blocks"].append(blk)
+    return out
+
+
 def mrlab_serving_params_from_jax(tree: Mapping, device="cuda",
                                   dtype: torch.dtype = torch.bfloat16) -> Dict:
     """A JAX MRLA-base serving tree (numpy or array leaves) -> the port's

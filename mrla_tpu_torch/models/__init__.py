@@ -20,7 +20,12 @@ from mrla_tpu_torch.models.efficientnet_mrla import (
     efficientnet_mrlal_b0,
 )
 from mrla_tpu_torch.models.patchconvnet import PatchConvNet
-from mrla_tpu_torch.models.registry import create_model, list_models, register_model
+from mrla_tpu_torch.models.registry import (
+    create_model,
+    get_model_ctor,
+    list_models,
+    register_model,
+)
 from mrla_tpu_torch.models.resmlp import Affine, ResMLP
 from mrla_tpu_torch.models.resnet import Bottleneck, ResNet
 from mrla_tpu_torch.models.resnet_la_eq4 import (
@@ -72,6 +77,7 @@ __all__ = [
     "create_model",
     "efficientnet_b0",
     "efficientnet_mrlal_b0",
+    "get_model_ctor",
     "list_models",
     "register_model",
     "resnet50_la_eq4",

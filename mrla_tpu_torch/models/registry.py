@@ -29,5 +29,12 @@ def create_model(name: str, device="cuda", **kwargs):
     return _REGISTRY[name](**kwargs).to(dev)
 
 
+def get_model_ctor(name: str) -> Callable:
+    """The constructor registered under ``name``; KeyError if none is."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model '{name}'")
+    return _REGISTRY[name]
+
+
 def list_models() -> list[str]:
     return sorted(_REGISTRY)

@@ -117,8 +117,9 @@ class ResNetLAEq4(nn.Module):
         self.head_drop = Dropout(drop_rate)
         self.fc = classifier_fc(inplanes, num_classes, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> logits [B, num_classes] fp32."""
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> the last stage's map (NCHW view of NHWC
+        memory)."""
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
@@ -126,7 +127,14 @@ class ResNetLAEq4(nn.Module):
             mem = []  # a new stage, a new context
             for block in getattr(self, f"layer{stage_idx + 1}"):
                 x, mem = block(x, mem)
+        return x
+
+    def forward_head(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.head_drop(x.mean(dim=(2, 3)))).float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> logits [B, num_classes] fp32."""
+        return self.forward_head(self.forward_features(x))
 
 
 @register_model

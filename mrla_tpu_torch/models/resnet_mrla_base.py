@@ -120,6 +120,8 @@ class ResNetMRLABase(nn.Module):
         super().__init__()
         self.layers = tuple(layers)
         self.drop_rate, self.drop_path = drop_rate, drop_path
+        # what the eq. 6 serving engine needs to know of the structure
+        self.deep_stem, self.relu_on_attn = deep_stem, relu_on_attn
         eca = tuple(eca) if eca else (None,) * len(self.layers)
         self.features_only = features_only
         self.conv1, self.bn1 = (
@@ -146,10 +148,10 @@ class ResNetMRLABase(nn.Module):
             self.head_drop = Dropout(drop_rate)
             self.fc = classifier_fc(inplanes, num_classes, generator)
 
-    def forward(self, x: torch.Tensor):
-        """[B, H, W, 3] -> logits [B, num_classes] fp32, or with
-        ``features_only`` the tuple of per-stage NHWC maps."""
-        w = self.bn1.weight
+    def stages(self, x: torch.Tensor) -> list:
+        """[B, H, W, 3] -> every stage's map (NCHW views of NHWC memory)."""
+        # the first conv's dtype (a precast model keeps its BNs fp32)
+        w = next(self.conv1.parameters())
         x = x.to(w.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
@@ -159,10 +161,21 @@ class ResNetMRLABase(nn.Module):
             cache = None  # init_cell: a new stage, a new cache
             for block in stage:
                 x, cache = block(x, cache, max_t=len(stage))
-            outs.append(x.permute(0, 2, 3, 1))
-        if self.features_only:
-            return tuple(outs)
+            outs.append(x)
+        return outs
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stages(x)[-1]
+
+    def forward_head(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.head_drop(x.mean(dim=(2, 3)))).float()
+
+    def forward(self, x: torch.Tensor):
+        """[B, H, W, 3] -> logits [B, num_classes] fp32, or with
+        ``features_only`` the tuple of per-stage NHWC maps."""
+        if self.features_only:
+            return tuple(o.permute(0, 2, 3, 1) for o in self.stages(x))
+        return self.forward_head(self.forward_features(x))
 
 
 @register_model

@@ -137,9 +137,8 @@ class ResNetMRLALight(nn.Module):
             self.head_drop = Dropout(drop_rate)
             self.fc = classifier_fc(inplanes, num_classes, generator)
 
-    def forward(self, x: torch.Tensor):
-        """[B, H, W, 3] -> logits [B, num_classes] fp32, or with
-        ``features_only`` the tuple of per-stage NHWC maps."""
+    def stages(self, x: torch.Tensor) -> list:
+        """[B, H, W, 3] -> every stage's map (NCHW views of NHWC memory)."""
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
@@ -148,10 +147,21 @@ class ResNetMRLALight(nn.Module):
         for stage_idx in range(len(self.layers)):
             for block in getattr(self, f"layer{stage_idx + 1}"):
                 x = remat_block(block, x) if remat else block(x)
-            outs.append(x.permute(0, 2, 3, 1))
-        if self.features_only:
-            return tuple(outs)
+            outs.append(x)
+        return outs
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stages(x)[-1]
+
+    def forward_head(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.head_drop(x.mean(dim=(2, 3)))).float()
+
+    def forward(self, x: torch.Tensor):
+        """[B, H, W, 3] -> logits [B, num_classes] fp32, or with
+        ``features_only`` the tuple of per-stage NHWC maps."""
+        if self.features_only:
+            return tuple(o.permute(0, 2, 3, 1) for o in self.stages(x))
+        return self.forward_head(self.forward_features(x))
 
 
 def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:

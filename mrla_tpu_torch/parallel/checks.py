@@ -296,7 +296,7 @@ def classification_test_job(work: str) -> Dict:
     from mrla_tpu_torch.train import cli
 
     spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
-    out: Dict[str, Any] = {"info": init_distributed(),
+    out: Dict[str, Any] = {"info": init_distributed(device="cpu"),
                            "main": is_main_process(),
                            "gathered": all_gather_metrics(
                                {"rank": float(rank()), "one": 1.0}),

@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from mrla_tpu_torch._device import resolve_device
+
 LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
               "LOCAL_RANK")
 
@@ -89,17 +91,18 @@ def launched() -> bool:
 
 
 def init_distributed(backend: Optional[str] = None,
-                     device=None) -> Dict[str, int]:
+                     device="cuda") -> Dict[str, int]:
     """Join the process group of the launch environment, if there is one
     and no group is joined yet; returns the JAX function's keys
     (``process_index``, ``process_count``, ``local_devices``: one device a
-    rank, ``global_devices``).  ``backend`` defaults to ``nccl`` where
-    ``device`` is a CUDA device (default: CUDA when a card is present) and
-    ``gloo`` otherwise."""
+    rank, ``global_devices``).  ``device`` is the rank's device, the card
+    by default, as every entry point's: joining a group without a card
+    raises (``resolve_device``) unless the caller passes ``device="cpu"``.
+    ``backend`` defaults to ``nccl`` for a CUDA device and ``gloo`` for the
+    CPU."""
     if not initialized() and launched():
+        dev = resolve_device(device)
         if backend is None:
-            dev = torch.device(device if device is not None else
-                               "cuda" if torch.cuda.is_available() else "cpu")
             backend = "nccl" if dev.type == "cuda" else "gloo"
         if backend == "nccl":
             torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))

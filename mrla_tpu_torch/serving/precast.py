@@ -14,11 +14,14 @@ the models compute what the JAX package's do with a bf16 ``dtype``: BN and
 LayerNorm in fp32 rounded once to bf16, the SE projections in fp32 from
 bf16-rounded weights.
 
-It serves the baseline ResNet / ResNeXt (SE, ECA, the dw ablation),
-EfficientNet-B0 (with MRLA), ResMLP and PatchConvNet archs and the plain
-``deit_*`` archs.  The resnet mrlal / mrlab archs and the DeiT-MRLA archs
-have their own engines (``serving/resnet_mrlal.py``, ``resnet_mrlab.py``,
-``deit.py``), and this one refuses them.
+It serves every family but the DeiT-MRLA archs: the baseline ResNet /
+ResNeXt (SE, ECA, the dw ablation), the LA eq. 4 ResNets, EfficientNet-B0
+(with MRLA), ResMLP, PatchConvNet, the plain ``deit_*`` archs, and the
+resnet mrlal / mrlab archs (which have faster engines of their own,
+``serving/resnet_mrlal.py`` and ``resnet_mrlab.py``; the eval CLI takes
+this one for them on ``--engine precast``).  The DeiT-MRLA archs
+(``ViTMRLA``) go to ``serving/deit.py``, which runs the token-tail kernel,
+and this engine refuses them.
 
 ``microbatch`` > 0 runs the trunk (``forward_features``) chain by chain
 and the head (``forward_head``) once over their outputs, as the other
@@ -40,11 +43,15 @@ from mrla_tpu_torch.models.patchconvnet import PatchConvNet
 from mrla_tpu_torch.models.registry import create_model
 from mrla_tpu_torch.models.resmlp import Affine, ResMLP
 from mrla_tpu_torch.models.resnet import ResNet
+from mrla_tpu_torch.models.resnet_la_eq4 import ResNetLAEq4
+from mrla_tpu_torch.models.resnet_mrla_base import ResNetMRLABase
+from mrla_tpu_torch.models.resnet_mrla_light import ResNetMRLALight
 from mrla_tpu_torch.serving.microbatch import chains
 
 # modules whose weights (and statistics) stay fp32
 FP32_MODULES = (nn.modules.batchnorm._BatchNorm, nn.LayerNorm, Affine)
-SERVED = (ResNet, EfficientNet, ResMLP, PatchConvNet)
+SERVED = (ResNet, ResNetLAEq4, ResNetMRLALight, ResNetMRLABase, EfficientNet,
+          ResMLP, PatchConvNet)
 
 
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -80,7 +87,7 @@ def prepare_precast_inference_params(
     if not (isinstance(model, SERVED) or type(model) is VisionTransformer):
         raise ValueError(
             f"{type(model).__name__} has its own serving engine "
-            "(serving/resnet_mrlal.py, resnet_mrlab.py or deit.py)")
+            "(serving/deit.py)")
     if state_dict is not None:
         model.load_state_dict({k.removeprefix("module."): v
                                for k, v in state_dict.items()}, strict=True)

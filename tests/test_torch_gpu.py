@@ -1633,3 +1633,102 @@ def test_per_rank_normaliser_fault_fails_on_the_card(cuda, tmp_path):
     assert abs(fault["terms"]["loss"] - want["terms"]["loss"]) > \
         1e-4 * want["terms"]["loss"]
     assert ranks[1]["global"]["same"]
+
+
+def test_int8_product_on_the_card_is_exact_and_refuses_bad_shapes(cuda):
+    """torch._int_mm (cuBLASLt) is exact in int32; shapes it does not take
+    raise (no fallback)."""
+    from mrla_tpu_torch.serving.quant import _int_mm
+
+    a = torch.randint(-127, 128, (100, 2048), dtype=torch.int8,
+                      device="cuda", generator=cuda)
+    w = torch.randint(-127, 128, (64, 2048), dtype=torch.int8,
+                      device="cuda", generator=cuda)
+    got = _int_mm(a, w).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long(), a.cpu().long() @ w.cpu().long().t())
+    for m, k, n in [(16, 64, 64), (32, 60, 64), (32, 64, 60)]:
+        with pytest.raises(ValueError, match="M > 16"):
+            _int_mm(torch.zeros(m, k, dtype=torch.int8, device="cuda"),
+                    torch.zeros(n, k, dtype=torch.int8, device="cuda"))
+
+
+def test_quant_engine_on_the_card_matches_the_cpu(cuda):
+    """prepare_quant_params and resnet_mrlal_quant_forward on the card
+    against the CPU on the same tree: the bf16 epilogue through the
+    kernel, one launch a block a chain; logits within 0.02 of their
+    scale."""
+    from mrla_tpu_torch.models import ResNetMRLALight
+    from mrla_tpu_torch.serving.quant import (
+        prepare_quant_params,
+        resnet_mrlal_quant_forward,
+    )
+
+    layers = (1, 1, 1, 1)
+    model = ResNetMRLALight(layers, num_classes=10,
+                            generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    calib = torch.randn(16, 64, 64, 3, generator=g)
+    x = torch.randn(32, 64, 64, 3, generator=g)
+    qp_cpu = prepare_quant_params(model, calib, layers, device="cpu")
+    qp = prepare_quant_params(model, calib.cuda(), layers, device="cuda")
+    for qres in (False, True):
+        ref = resnet_mrlal_quant_forward(qp_cpu, x, layers, microbatch=16,
+                                         quant_residual=qres).numpy()
+        fused_epilogue.counter.reset()
+        got = resnet_mrlal_quant_forward(qp, x.cuda(), layers, microbatch=16,
+                                         quant_residual=qres).cpu().numpy()
+        assert fused_epilogue.counter.launches == 2 * sum(layers)
+        scale = abs(ref).max()
+        assert abs(got - ref).max() < 0.02 * scale
+
+
+def test_batching_daemon_on_the_card(cuda):
+    """The daemon's flusher and completer threads on the card: the rows of
+    a padded bf16 batch are the engine's own forward of them."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mrla_tpu_torch.models import ResNetMRLALight
+    from mrla_tpu_torch.serving.server import build_server
+
+    model = ResNetMRLALight((1, 1, 1, 1), num_classes=10,
+                            generator=torch.Generator().manual_seed(0))
+    httpd, beng = build_server("resnet50_mrlal", None, batch_size=8,
+                               image_size=64, num_classes=10, port=0,
+                               device="cuda", model=model)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        imgs = np.random.default_rng(0).standard_normal(
+            (3, 64, 64, 3)).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, imgs)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/predict",
+            data=buf.getvalue(), method="POST",
+            headers={"Content-Type": "application/x-npy"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = np.asarray(json.loads(r.read())["predictions"])
+        x = torch.from_numpy(np.concatenate([imgs] + [imgs[:1]] * 5))
+        want = beng.fwd(x.to("cuda", torch.bfloat16)).cpu().numpy()[:3]
+        assert abs(got - want).max() <= 0.05 * abs(want).max()
+        assert beng.stats == {"requests": 3, "batches": 1, "padded_rows": 5}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        beng.close()
+
+
+def test_hub_load_on_the_card(cuda):
+    from mrla_tpu_torch import hub
+
+    model, sd = hub.load("resnet50_mrlal", device="cuda")
+    assert sd["fc.weight"].device.type == "cuda"
+    with torch.inference_mode():
+        out = model(torch.randn(2, 224, 224, 3, device="cuda",
+                                generator=cuda))
+    assert out.shape == (2, 1000) and torch.isfinite(out).all()

@@ -176,11 +176,17 @@ def test_entry_defaults_to_the_card_and_leaves_dedicated_archs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             prepare_precast_inference_params(ResMLP(img_size=32, depth=1))
-    for arch in ("resnet50_mrlal", "resnet50_mrlab",
-                 "deit_mrlal_tiny_patch16_224"):
-        with pytest.raises(ValueError, match="own serving engine"):
-            prepare_precast_inference_params(arch, device="cpu",
-                                             num_classes=10)
+    # the DeiT-MRLA archs go to serving/deit.py (the token-tail kernel);
+    # the resnet mrlal / mrlab archs are served here on an explicit
+    # --engine precast of the eval CLI
+    with pytest.raises(ValueError, match="own serving engine"):
+        prepare_precast_inference_params("deit_mrlal_tiny_patch16_224",
+                                         device="cpu", num_classes=10)
+    for arch in ("resnet50_mrlal", "resnet50_mrlab"):
+        served = prepare_precast_inference_params(arch, device="cpu",
+                                                  num_classes=10)
+        assert served.fc.weight.dtype == torch.bfloat16
+        assert served.bn1.weight.dtype == torch.float32
     model = prepare_precast_inference_params("resnet50_dw", device="cpu",
                                              num_classes=10)
     assert model.conv1.weight.dtype == torch.bfloat16
