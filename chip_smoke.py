@@ -17,9 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      int8-engine shapes no other path gives it ([64,56,56,256] and
      [64,28,28,512], chains of 64), with its time (CUDA events),
      its bound and the plain version's time; the DeiT token tail also at
-     the other two published widths and at a batch of 3, and its cls rows
-     with ot doubled; the block tail from z (the HWBC block tail's kernel
-     too), the row tail and the copy at every shape the tail routes give
+     the other two published widths, at a batch of 3 and at the 384 px
+     base model's 24 x 24 grid ([128,577,768]), its cls rows with ot
+     doubled, and each shape's two passes as deit_token_tail_describe
+     reports them (registers, spills, blocks an SM); the block tail from
+     z (the HWBC block tail's kernel too), the row tail and the copy at every shape the tail routes give
      them and at the JAX package's test shapes (the row tail with and
      without x1; the copy held bitwise, a new tensor, and timed in turns
      with x.clone()); at each mega-tail and row-tail shape also, as
@@ -372,9 +374,11 @@ DEIT_ARCH = "deit_mrlal_small_patch16_224"
 DEIT_TAIL_SHAPES = {
     (BATCH, 197, 384): ("blocks 0..11", 12),
 }
-# further shapes the token tail is checked at: the other published widths
-# and a batch whose B * N is no multiple of 8
-DEIT_TAIL_EXTRA_SHAPES = [(BATCH, 197, 192), (BATCH, 197, 768), (3, 197, 384)]
+# further shapes the token tail is checked at: the other published widths,
+# a batch whose B * N is no multiple of 8 and the 384 px base model's
+# 24 x 24 grid
+DEIT_TAIL_EXTRA_SHAPES = [(BATCH, 197, 192), (BATCH, 197, 768), (3, 197, 384),
+                          (BATCH, 577, 768)]
 # per element: two LayerNorms (8 each), GAP, 9 taps (FMA = 2), erf GELU
 # (about 23), gate, λ·normo, residual
 DEIT_TAIL_FP32_OPS = 60
@@ -889,10 +893,30 @@ def check_copy(lib, gen):
     return rows
 
 
+def deit_tail_plan(lib, b, n, c) -> str:
+    """The token tail's two passes at [b, n, c] as the kernel reports them
+    (deit_token_tail_describe): each pass's block, registers, spills and
+    blocks an SM, pass 2's grid and ring."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check
+
+    out = (ctypes.c_int * 15)()
+    check(lib.deit_token_tail_describe(b, n, c, ctypes.addressof(out)),
+          f"deit_token_tail_describe [{b},{n},{c}]")
+    o = list(out)
+    return (f"pass 1: a block of {o[14]} threads an image, {o[0]} registers,"
+            f" {o[1]} B spilled, {o[3]} B shared, {o[4]} blocks an SM; pass "
+            f"2: {o[12]} blocks of {o[10]} threads ({o[11]} grid rows), "
+            f"{o[5]} registers, {o[6]} B spilled, {o[8]} B shared, {o[9]} "
+            f"blocks an SM, a ring of {o[13]} columns")
+
+
 def check_deit_tail(lib, gen):
     """The DeiT token tail against its plain version at the main path's
-    shape, the other published widths and a batch of 3, from seeded tokens
-    and weights (mrla_tpu_torch/testing.py); two launches bitwise equal."""
+    shape, the other published widths, a batch of 3 and the 384 px grid,
+    from seeded tokens and weights (mrla_tpu_torch/testing.py); two
+    launches bitwise equal; the cls rows blind to ot."""
     from mrla_tpu_torch.kernels import (
         deit_token_tail,
         deit_token_tail_reference,
@@ -928,8 +952,9 @@ def check_deit_tail(lib, gen):
         bound_ms, by = bound(3 * elems * 2 + 14 * c * 4 + 2 * ktap * 4, 0,
                              DEIT_TAIL_FP32_OPS * elems)
         rows[shape] = dict(
-            shape=f"x, ot [{b},{n},{c}]", max_abs_err=err, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            shape=f"x, ot [{b},{n},{c}]", max_abs_err=err, tol=tol,
+            reruns_bitwise_equal=rerun_same, cls_rows_unchanged=cls_same,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
         print(f"deit tail [{b},{n},{c}] bf16: max|Δout| {err:.3g} (tol "
               f"{tol:.3g}: 1 bf16 ulp at max|out| = "
               f"{ref.float().abs().max().item():.3g}; both round one fp32 "
@@ -937,7 +962,7 @@ def check_deit_tail(lib, gen):
               f"{'bitwise equal' if rerun_same else 'DIFFER'}; cls rows with "
               f"ot doubled {'unchanged' if cls_same else 'CHANGED'} | kernel "
               f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms")
+              f"{plain_ms:.4f} ms | {deit_tail_plan(lib, b, n, c)}")
         if not err <= tol:
             raise AssertionError(f"deit tail {shape}: {err} > {tol}")
         if not rerun_same:

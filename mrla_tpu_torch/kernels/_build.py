@@ -60,6 +60,10 @@ SIGNATURES = {
     "deit_token_tail_scratch_per_image": [_I] * 4,
     # x, ot, vec, taps, scratch, out, B, N, C, d, ktap, stream
     "deit_token_tail_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # B, N, C, int[15] out: each pass's registers, spilled bytes, static
+    # and dynamic shared memory and blocks an SM; pass 2's threads a block,
+    # grid rows a block, blocks and ring columns; pass 1's threads a block
+    "deit_token_tail_describe": [_I] * 3 + [_P],
     # f0..f3, (H, W) of 4 levels, L, geom, out, B, P, C, O, smax, bf16,
     # stream
     "roi_align_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 6 + [_P],

@@ -151,9 +151,9 @@ def deit_token_tail(x: torch.Tensor, ot: torch.Tensor, packed: TailParams,
                     {"vec": packed.vec, "taps": packed.taps})
     ktap = packed.taps.shape[1]
     lib = library()
-    # scratch: the gate, partial channel sums and the rows' statistics; the
-    # size is -1 for a shape the kernel does not take, which the launch
-    # below then refuses itself
+    # scratch: the gate and the rows' statistics; the size is -1 for a
+    # shape the kernel does not take, which the launch below then refuses
+    # itself
     per_image = lib.deit_token_tail_scratch_per_image(n, c, dim_perhead, ktap)
     scratch = torch.empty(b * max(per_image, 0), dtype=torch.float32,
                           device=x.device)

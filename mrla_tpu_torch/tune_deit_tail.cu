@@ -1,8 +1,10 @@
 // A design of the DeiT MRLA-light token tail that was measured and not
 // taken: one pass over memory, an image to a thread-block cluster.  The
-// library's kernel (csrc/deit_token_tail.cu, three launches) stays faster
-// at C = 384 and 768; tune_deit_tail.py builds this file on its own and
-// times it at every cluster size beside the library's.  It is on no path.
+// three launches then on the path (tune_deit_tail_launches.cu) were faster
+// at C = 384 and 768, and so is the library's kernel that replaced them
+// (csrc/deit_token_tail.cu, two passes); tune_deit_tail.py builds this file
+// on its own and times it at every cluster size beside the library's.  It
+// is on no path.
 //
 // Per image, x and ot [N, C] bf16 with N = 1 + S * S (row 0 the cls token,
 // rows 1.. the S x S grid, row-major):

@@ -308,7 +308,8 @@ def test_gate_runs_on_the_card(cuda):
 
 # the three published widths, a batch whose B * N is no multiple of 8, a
 # single image, the 384 px base model's grid, a 4x4 and a 3x3 grid, 3-tap
-# channel convs (C = 64) and heads of 32 channels
+# channel convs (C = 64) and heads of 32 channels; the 24 x 24 grid at
+# C = 192 and a single image at C = 768
 @pytest.mark.parametrize("b,n,c,d,ktap", [(16, 197, 384, 16, 5),
                                           (3, 197, 384, 16, 5),
                                           (1, 197, 384, 16, 5),
@@ -317,7 +318,9 @@ def test_gate_runs_on_the_card(cuda):
                                           (2, 577, 768, 16, 5),
                                           (3, 17, 128, 16, 5),
                                           (2, 10, 64, 32, 3),
-                                          (1, 577, 1024, 16, 7)])
+                                          (1, 577, 1024, 16, 7),
+                                          (2, 577, 192, 16, 5),
+                                          (1, 197, 768, 16, 5)])
 def test_deit_tail_kernel_matches_plain(cuda, b, n, c, d, ktap):
     x, ot, packed = deit_tail_case(cuda, b, n, c, ktap)
     deit_token_tail.counter.reset()
@@ -350,6 +353,87 @@ def test_deit_tail_two_launches_bitwise_equal_and_every_element_written(
         16, ktap, torch.cuda.current_stream().cuda_stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(nan, out)
+
+
+# the window never reads across images: image 1's out is the same bits
+# whether its neighbours in memory hold zeros or large values, and so are
+# images 0 and 2 whatever image 1 holds
+@pytest.mark.parametrize("n,c", [(197, 384), (577, 192), (10, 64)])
+def test_deit_tail_images_do_not_reach_each_other(cuda, n, c):
+    x, ot, packed = deit_tail_case(cuda, 3, n, c)
+    big = lambda t: (torch.rand(t.shape, generator=cuda, device="cuda")
+                     * 2000 - 1000).bfloat16()
+
+    def with_images(images, fill):
+        x2, ot2 = x.clone(), ot.clone()
+        for i in images:
+            x2[i], ot2[i] = fill(x2[i]), fill(ot2[i])
+        return deit_token_tail(x2, ot2, packed)
+
+    zeros = torch.zeros_like
+    assert torch.equal(with_images((0, 2), zeros)[1],
+                       with_images((0, 2), big)[1])
+    a, b = with_images((1,), zeros), with_images((1,), big)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    assert not torch.equal(a[1], b[1])
+
+
+def test_deit_tail_early_pass2_reads_only_this_launchs_scratch(cuda):
+    """Pass 2 is a dependent launch in every call: its blocks start while
+    pass 1 still runs and wait for it before they read the gates and the
+    rows' statistics.  At the main shape, a launch on a scratch that holds
+    another input's gates and statistics (what a read before the wait, or
+    through a cache that missed pass 1's writes, would take) gives the bits
+    of a launch on a NaN-filled scratch, twice, within 1 ulp of the plain
+    version."""
+    from mrla_tpu_torch.kernels._build import library
+
+    b, n, c = 128, 197, 384
+    x, ot, packed = deit_tail_case(cuda, b, n, c)
+    x2, ot2, _ = deit_tail_case(cuda, b, n, c)
+    lib, ktap = library(), packed.taps.shape[1]
+    scratch = torch.full(
+        (b * lib.deit_token_tail_scratch_per_image(n, c, 16, ktap),),
+        float("nan"), device="cuda")
+
+    def launch(xs, ots):
+        out = torch.empty_like(xs)
+        assert lib.deit_token_tail_bf16(
+            xs.data_ptr(), ots.data_ptr(), packed.vec.data_ptr(),
+            packed.taps.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n,
+            c, 16, ktap, torch.cuda.current_stream().cuda_stream) == 0
+        return out
+
+    first = launch(x, ot)
+    other = launch(x2, ot2)  # the scratch now holds x2's gates and rows
+    for _ in range(2):
+        assert torch.equal(launch(x, ot), first)
+        launch(x2, ot2)
+    torch.cuda.synchronize()
+    assert not torch.equal(other, first)
+    _assert_ulps(first, deit_token_tail_reference(x, ot, packed), 1)
+
+
+@pytest.mark.parametrize("b,n,c", [(128, 197, 384), (128, 197, 192),
+                                   (128, 197, 768), (128, 577, 768),
+                                   (3, 17, 128), (1, 577, 1024)])
+def test_deit_tail_describe(cuda, b, n, c):
+    """The launch deit_token_tail_describe reports: a pass-2 block a row of
+    C / 8 threads, blocks that cover the B * S grid rows once, a pass-1
+    block of whole warps, both passes resident."""
+    import ctypes
+
+    from mrla_tpu_torch.kernels._build import check, library
+
+    out = (ctypes.c_int * 15)()
+    check(library().deit_token_tail_describe(b, n, c, ctypes.addressof(out)),
+          "deit_token_tail_describe")
+    s = math.isqrt(n - 1)
+    threads, rows, blocks, ring, pass1_threads = out[10:15]
+    assert threads == rows * (c // 8) <= 256 and rows >= 1
+    assert blocks == -(-(b * s) // rows) and ring >= 2
+    assert pass1_threads % 32 == 0 and 32 <= pass1_threads <= 1024
+    assert out[4] >= 1 and out[9] >= 1  # blocks an SM, each pass
 
 
 def test_deit_tail_cls_rows_do_not_depend_on_ot(cuda):
